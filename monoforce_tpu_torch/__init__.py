@@ -4,14 +4,19 @@ NVIDIA H100.
 The JAX package ``monoforce_tpu`` stays the reference; this package imports
 nothing of it and no JAX.  Its layout mirrors the JAX package's, so each
 module's counterpart has the same path.  Ported so far: the shooting
-planner's serving path.
+planner's serving path in every mode, the differentiable rollout and
+terrain fitting through it.
 
 - ``monoforce_tpu_torch.config``   -- ``PhysicsConfig`` (own copy).
-- ``monoforce_tpu_torch.physics``  -- robot model, controls and the planner
-  rollout (``physics.fast.planner_rollout``).
+- ``monoforce_tpu_torch.physics``  -- robot model, controls, the planner
+  rollout (``physics.fast.planner_rollout``) and the differentiable one
+  (``physics.fast.fast_rollout``).
 - ``monoforce_tpu_torch.ops``      -- the Hopper kernels (CUDA C++ under
   ``ops/csrc``) with their plain PyTorch versions.
 - ``monoforce_tpu_torch.planner``  -- path costs, selection and ``Planner``.
+- ``monoforce_tpu_torch.losses``   -- the training losses.
+- ``monoforce_tpu_torch.training`` -- ``fit_terrain``: terrain and friction
+  fitted by gradient descent through the rollout.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -20,11 +25,14 @@ from monoforce_tpu_torch.config import PhysicsConfig
 
 __version__ = "0.1.0"
 
-__all__ = ["PhysicsConfig", "Planner", "__version__"]
+__all__ = ["PhysicsConfig", "Planner", "fit_terrain", "__version__"]
 
 
 def __getattr__(name):
     if name == "Planner":
         from monoforce_tpu_torch.planner import Planner
         return Planner
+    if name == "fit_terrain":
+        from monoforce_tpu_torch.training import fit_terrain
+        return fit_terrain
     raise AttributeError(name)

@@ -1,8 +1,12 @@
-from monoforce_tpu_torch.ops.interp_cuda import fk_interp
+from monoforce_tpu_torch.ops.interp_cuda import fk_interp, fk_interp_bwd
 from monoforce_tpu_torch.ops.fk_step_cuda import (
+    fk_step,
     fk_step_muq,
+    fk_step_packed,
+    fk_step_pair3,
     fk_step_pairmu,
     fk_step_zu,
 )
 
-__all__ = ["fk_interp", "fk_step_zu", "fk_step_muq", "fk_step_pairmu"]
+__all__ = ["fk_interp", "fk_interp_bwd", "fk_step_zu", "fk_step_muq",
+           "fk_step_pairmu", "fk_step_pair3", "fk_step_packed", "fk_step"]

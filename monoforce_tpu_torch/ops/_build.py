@@ -27,7 +27,7 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "build_log"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("fk_interp", "fk_step")
+SOURCES = ("fk_interp", "fk_interp_bwd", "fk_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,14 +1,26 @@
-// The per-point physics of one planner step, reduced per trajectory, for
+// The per-point physics of one rollout step, reduced per trajectory, for
 // Hopper (sm_90a).
 //
-// Replaces the TPU kernels of monoforce_tpu/ops/fk_step_pallas.py that the
-// planner's serving path dispatches (_step_math_pair, :474-682):
+// Replaces every step kernel of monoforce_tpu/ops/fk_step_pallas.py, as one
+// template over the window format:
 //   fk_step_pair_zu, fk_step_pair3_zu -> format kZu     (bf16 z-pair words,
 //                                                         mu == 1)
 //   fk_step_pair3_muq                 -> format kMuq    (z-pair words + one
 //                                                         u8 friction quad)
 //   fk_step_pair                      -> format kPairMu (bf16 [z | mu] words,
 //                                                         nearest-cell mu)
+//   fk_step_pair3                     -> format kPair3  (bf16 [z | mu] words,
+//                                                         bilinear mu)
+//   fk_step_packed                    -> format kPacked (bf16 [z | mu] words,
+//                                                         bilinear mu)
+//   fk_step                           -> format kExact  (f32 [z(256) |
+//                                                         mu(256)] windows)
+// The first four follow _step_math_pair (:474-682): the cell index from a
+// multiply by 1/res, and the spring std from the sum and the sum of squares.
+// kPacked and kExact follow _step_math (:128-274): the cell index from the
+// IEEE divide by res, and the spring std in two passes (the mean, then the
+// sum of squared deviations), each point's spring force held in shared
+// memory between the passes.
 // The TPU's two-trajectories-per-register packing, its lane gathers, its
 // ones-matmul reductions and its ghost points are layout, not semantics:
 // here one warp owns one trajectory and its lanes stride over the P real
@@ -18,22 +30,21 @@
 //
 // Per trajectory: state (18) = [x(3) v(3) R(9, row-major) omega(3)], track
 // velocities tv (n_k), window corner sxy (2), window words (256 or 512
-// uint32).  Points pts (7, P) = [px, py, pz, drive_mask_0..3].  Output (8) =
-// [ax, ay, az, aw0, aw1, aw2, spring_std, n_contacts], spring_std from the
-// sum and the sum of squares like the pair kernels.
+// 32-bit words).  Points pts (7, P) = [px, py, pz, drive_mask_0..3].
+// Output (8) = [ax, ay, az, aw0, aw1, aw2, spring_std, n_contacts].
 //
-// Bound on the H100: bytes.  A trajectory reads 1 or 2 KB of window words
-// and ~100 bytes of state, tv and corners, and does ~200 flops per point
-// (P <= 192), far below the 67 TFLOP/s float32 rate for the bytes moved.
-// Design: each warp copies its window into shared memory with coalesced
-// loads, so the 4-9 data-dependent tap reads per point hit shared memory;
-// the block stages the point planes once for its warps.  The per-point work
-// runs twice: once for the contact count n_cp (the force normalisation
-// needs it), once for the forces; recomputing is cheaper than holding
-// ~15 values per point.  Both reductions are warp shuffles.  The index path
-// (world point -> cell) is written with round-to-nearest intrinsics so that
-// no FMA contraction moves a point across a cell boundary away from the
-// plain PyTorch version; the rest may contract.
+// Bound on the H100: operations.  A trajectory reads 1 or 2 KB of window
+// words and ~100 bytes of state, tv and corners, and does ~150-170 flops
+// per point (P <= 256), more than the 67 TFLOP/s float32 rate takes for the
+// bytes moved.  Design: each warp copies its window into shared memory with
+// coalesced loads, so the 2-8 data-dependent tap reads per point hit shared
+// memory; the block stages the point planes once for its warps.  The
+// per-point work runs twice: once for the contact count n_cp (the force
+// normalisation needs it), once for the forces; recomputing is cheaper than
+// holding ~15 values per point.  The reductions are warp shuffles.  The
+// index path (world point -> cell) is written with round-to-nearest
+// intrinsics so that no FMA contraction moves a point across a cell
+// boundary away from the plain PyTorch version; the rest may contract.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,7 +53,19 @@ namespace {
 
 constexpr int kWarps = 4;  // trajectories per block
 
-enum Format { kZu = 0, kMuq = 1, kPairMu = 2 };
+enum Format { kZu = 0, kMuq = 1, kPairMu = 2, kPacked = 3, kExact = 4,
+              kPair3 = 5 };
+
+template <int FMT>
+struct Traits {
+  // window words per trajectory
+  static constexpr int kWords = (FMT == kMuq || FMT == kExact) ? 512 : 256;
+  // _step_math's formats: IEEE divide in the index path, two-pass std
+  static constexpr bool kDivide = FMT == kPacked || FMT == kExact;
+  // [z | mu] words: four taps give z (high halves) and mu (low halves)
+  static constexpr bool kZMuWords =
+      FMT == kPairMu || FMT == kPacked || FMT == kPair3;
+};
 
 // cst layout of pack_consts (monoforce_tpu/ops/fk_step_pallas.py:68-71)
 enum {
@@ -86,16 +109,20 @@ fk_step_kernel(const float* __restrict__ cst,
                const float* __restrict__ state, const float* __restrict__ tv,
                const float* __restrict__ sxy, const float* __restrict__ pts,
                int B, int P, int n_k, float* __restrict__ out) {
-  constexpr int W = FMT == kMuq ? 512 : 256;
+  constexpr int W = Traits<FMT>::kWords;
+  constexpr bool kDivide = Traits<FMT>::kDivide;
   extern __shared__ float smem[];
   float* s_pts = smem;                                            // (7, P)
   uint32_t* s_win = reinterpret_cast<uint32_t*>(smem + 7 * P);    // (kWarps, W)
+  // each point's spring force for the two-pass std (kDivide formats only)
+  float* s_spr = smem + 7 * P + kWarps * W;                       // (kWarps, P)
 
   for (int i = threadIdx.x; i < 7 * P; i += blockDim.x) s_pts[i] = pts[i];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarps + warp;
   uint32_t* win = s_win + warp * W;
+  float* spr = s_spr + warp * P;
   if (b < B) {
     const uint32_t* src = patch + (size_t)b * W;
     for (int i = lane; i < W; i += 32) win[i] = src[i];
@@ -106,7 +133,7 @@ fk_step_kernel(const float* __restrict__ cst,
   const float d_max = cst[C_DMAX], res = cst[C_RES];
   const float stiff = cst[C_STIFF], damp = cst[C_DAMP];
   const float m = cst[C_MASS], g = cst[C_G];
-  const float inv_res = 1.0f / res;  // the serving kernels' reciprocal
+  const float inv_res = 1.0f / res;  // the pair kernels' reciprocal
   const float mg = m * g;
 
   const float* s = state + (size_t)b * 18;
@@ -132,8 +159,10 @@ fk_step_kernel(const float* __restrict__ cst,
     q.vy = v1 + w2 * q.rx - w0 * q.rz;
     q.vz = v2 + w0 * q.ry - w1 * q.rx;
 
-    const float fxq = __fmul_rn(__fadd_rn(wx, d_max), inv_res);
-    const float fyq = __fmul_rn(__fadd_rn(wy, d_max), inv_res);
+    const float fxq = kDivide ? __fdiv_rn(__fadd_rn(wx, d_max), res)
+                              : __fmul_rn(__fadd_rn(wx, d_max), inv_res);
+    const float fyq = kDivide ? __fdiv_rn(__fadd_rn(wy, d_max), res)
+                              : __fmul_rn(__fadd_rn(wy, d_max), inv_res);
     const int xi = (int)fxq;  // truncation toward zero
     const int yi = (int)fyq;
     const float xf = fxq - (float)xi;
@@ -145,14 +174,28 @@ fk_step_kernel(const float* __restrict__ cst,
     const float w_fl = xf * yf;
 
     float t0, t1, t2, t3;
-    if (FMT == kPairMu) {
-      // [z | mu] words: the four taps' high halves, mu of the tap-0 cell
-      const uint32_t c0 = win[idx];
+    if (Traits<FMT>::kZMuWords) {
+      // [z | mu] words: z from the four taps' high halves; mu from the
+      // tap-0 cell's low half (kPairMu) or bilinear over the low halves
+      const uint32_t c0 = win[idx], c1 = win[idx + 16];
+      const uint32_t c2 = win[idx + 1], c3 = win[idx + 17];
       t0 = hi_half(c0);
-      t1 = hi_half(win[idx + 16]);
-      t2 = hi_half(win[idx + 1]);
-      t3 = hi_half(win[idx + 17]);
-      q.mu = lo_half(c0);
+      t1 = hi_half(c1);
+      t2 = hi_half(c2);
+      t3 = hi_half(c3);
+      q.mu = FMT == kPairMu
+                 ? lo_half(c0)
+                 : w_cc * lo_half(c0) + w_cf * lo_half(c1) +
+                       w_lc * lo_half(c2) + w_fl * lo_half(c3);
+    } else if (FMT == kExact) {
+      // f32 planes: z in words 0-255, mu in 256-511
+      const float* wf = reinterpret_cast<const float*>(win) + idx;
+      t0 = wf[0];
+      t1 = wf[16];
+      t2 = wf[1];
+      t3 = wf[17];
+      q.mu = w_cc * wf[256] + w_cf * wf[272] + w_lc * wf[257] +
+             w_fl * wf[273];
     } else {
       // z-pair words [z(i,j) | z(i,j+1)]: two reads give all four taps
       const uint32_t a = win[idx], c = win[idx + 16];
@@ -208,6 +251,7 @@ fk_step_kernel(const float* __restrict__ cst,
     const float fsy = clampf(cs * q.ny, -mg, mg);
     const float fsz = clampf(cs * q.nz, -mg, mg);
     const float spring = sqrtf(fsx * fsx + fsy * fsy + fsz * fsz + 1e-30f);
+    if (kDivide) spr[p] = spring;
 
     float cmd = tvk[0] * s_pts[3 * P + p];
 #pragma unroll
@@ -237,8 +281,23 @@ fk_step_kernel(const float* __restrict__ cst,
 #pragma unroll
   for (int i = 0; i < 8; ++i) acc[i] = warp_sum(acc[i]);
 
+  const float n_real = cst[C_NREAL];
+  const float s_mean = acc[6] / n_real;
+  float s_var;
+  if (kDivide) {
+    // second pass: each lane reads back the spring forces it wrote
+    float dev = 0.0f;
+    for (int p = lane; p < P; p += 32) {
+      const float d = spr[p] - s_mean;
+      dev += d * d;
+    }
+    s_var = warp_sum(dev) / n_real;
+  } else {
+    s_var = fmaxf(acc[7] / n_real - s_mean * s_mean, 0.0f);
+  }
+
   if (lane == 0) {
-    const float om = cst[C_OMAX], n_real = cst[C_NREAL];
+    const float om = cst[C_OMAX];
     const float i00 = cst[C_I00], i01 = cst[C_I01], i02 = cst[C_I02];
     const float i11 = cst[C_I11], i12 = cst[C_I12], i22 = cst[C_I22];
     const float tq0 = acc[0], tq1 = acc[1], tq2 = acc[2];
@@ -249,8 +308,6 @@ fk_step_kernel(const float* __restrict__ cst,
     o[3] = clampf(i00 * tq0 + i01 * tq1 + i02 * tq2, -om, om);
     o[4] = clampf(i01 * tq0 + i11 * tq1 + i12 * tq2, -om, om);
     o[5] = clampf(i02 * tq0 + i12 * tq1 + i22 * tq2, -om, om);
-    const float s_mean = acc[6] / n_real;
-    const float s_var = fmaxf(acc[7] / n_real - s_mean * s_mean, 0.0f);
     o[6] = sqrtf(s_var + 1e-30f);
     o[7] = n_cp;
   }
@@ -260,8 +317,9 @@ template <int FMT>
 int launch(const float* cst, const uint32_t* patch, const float* state,
            const float* tv, const float* sxy, const float* pts, int B, int P,
            int n_k, float* out, cudaStream_t stream) {
-  constexpr int W = FMT == kMuq ? 512 : 256;
-  const size_t smem = (size_t)(7 * P + kWarps * W) * sizeof(float);
+  constexpr int W = Traits<FMT>::kWords;
+  const int spr = Traits<FMT>::kDivide ? kWarps * P : 0;
+  const size_t smem = (size_t)(7 * P + kWarps * W + spr) * sizeof(float);
   const unsigned blocks = (unsigned)((B + kWarps - 1) / kWarps);
   fk_step_kernel<FMT><<<blocks, kWarps * 32, smem, stream>>>(
       cst, patch, state, tv, sxy, pts, B, P, n_k, out);
@@ -270,24 +328,31 @@ int launch(const float* cst, const uint32_t* patch, const float* state,
 
 }  // namespace
 
-// fmt: 0 = zu, 1 = muq, 2 = pairmu.  Launches on `stream`; returns
-// cudaGetLastError() (0 on success).
+// fmt: 0 = zu, 1 = muq, 2 = pairmu, 3 = packed, 4 = exact, 5 = pair3.
+// Launches on `stream`; returns cudaGetLastError() (0 on success).
 extern "C" int fk_step_launch(int fmt, const float* cst, const void* patch,
                               const float* state, const float* tv,
                               const float* sxy, const float* pts, int B, int P,
                               int n_k, float* out, cudaStream_t stream) {
   if (B == 0) return 0;
-  const uint32_t* words = static_cast<const uint32_t*>(patch);
+  const uint32_t* w = static_cast<const uint32_t*>(patch);
   switch (fmt) {
     case kZu:
-      return launch<kZu>(cst, words, state, tv, sxy, pts, B, P, n_k, out,
-                         stream);
+      return launch<kZu>(cst, w, state, tv, sxy, pts, B, P, n_k, out, stream);
     case kMuq:
-      return launch<kMuq>(cst, words, state, tv, sxy, pts, B, P, n_k, out,
-                          stream);
+      return launch<kMuq>(cst, w, state, tv, sxy, pts, B, P, n_k, out, stream);
     case kPairMu:
-      return launch<kPairMu>(cst, words, state, tv, sxy, pts, B, P, n_k, out,
+      return launch<kPairMu>(cst, w, state, tv, sxy, pts, B, P, n_k, out,
                              stream);
+    case kPacked:
+      return launch<kPacked>(cst, w, state, tv, sxy, pts, B, P, n_k, out,
+                             stream);
+    case kExact:
+      return launch<kExact>(cst, w, state, tv, sxy, pts, B, P, n_k, out,
+                            stream);
+    case kPair3:
+      return launch<kPair3>(cst, w, state, tv, sxy, pts, B, P, n_k, out,
+                            stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,32 +1,42 @@
-"""The per-point physics of one planner step: CUDA kernel and plain version.
+"""The per-point physics of one rollout step: CUDA kernel and plain version.
 
-Port of the serving step kernels of ``monoforce_tpu/ops/fk_step_pallas.py``:
-``pack_consts`` (``:68-84``) and ``_step_math_pair`` (``:474-682``) as the
-entry points ``fk_step_pair_zu`` (``:779-792``), ``fk_step_pair3_zu``
-(``:944-965``), ``fk_step_pair3_muq`` (``:968-995``) and ``fk_step_pair``
-(``:763-776``) compute it.  The TPU packs two trajectories per register row;
-that is layout, so the port works per trajectory on the P real points, and
-the JAX pair layout maps onto it by plain views (``state.reshape(-1, 36)``,
-``out.reshape(-1, 8)``).  One kernel, ``csrc/fk_step.cu``, serves three
-window formats, each an int32 tensor of word bit patterns per trajectory:
+Port of the step kernels of ``monoforce_tpu/ops/fk_step_pallas.py``:
+``pack_consts`` (``:68-84``), ``_step_math`` (``:128-274``) and
+``_step_math_pair`` (``:474-682``) as every entry point computes them.  The
+TPU packs two trajectories per register row; that is layout, so the port
+works per trajectory on the P real points, and the JAX pair layout maps
+onto it by plain views (``state.reshape(-1, 36)``, ``out.reshape(-1, 8)``).
+One kernel, ``csrc/fk_step.cu``, serves six window formats, each a tensor of
+32-bit words per trajectory:
 
 - ``zu`` (``fk_step_zu``): 256 bf16 z-pair words ``[z(i,j) | z(i,j+1)]``
   (``physics.fast._extract_windows_zpair``); friction is exactly 1.  Serves
-  the ``pair_zu`` and ``pair3_zu`` modes: the z taps are the same bf16
+  ``fk_step_pair_zu`` and ``fk_step_pair3_zu``: the z taps are the same bf16
   values as the TPU's pair words.
 - ``muq`` (``fk_step_muq``): 512 words, the z-pair plane and a plane of u8
   friction quads at scale 1/64 (``_extract_windows_zmuq``); exact bilinear
-  weights on the quantized friction.  Serves ``pair3_muq``.
+  weights on the quantized friction.  Serves ``fk_step_pair3_muq``.
 - ``pairmu`` (``fk_step_pairmu``): 256 bf16 ``[z | mu]`` words
   (``_extract_windows_packed1``): z from the high halves of the four taps,
   friction from the low half of the tap-0 cell (the TPU ``pair`` mode's
-  nearest-cell friction, the same bf16 values).  Serves ``pair``.
+  nearest-cell friction, the same bf16 values).  Serves ``fk_step_pair``.
+- ``pair3`` (``fk_step_pair3``): the same ``[z | mu]`` words with exact
+  bilinear friction over the four taps' low halves.  The JAX entry point
+  takes two trajectories' windows per row, ``words.reshape(-1, 512)``.
+- ``packed`` (``fk_step_packed``): ``[z | mu]`` words as ``pair3``, with
+  ``_step_math``'s IEEE divide in the index path and two-pass spring std.
+- ``exact`` (``fk_step``): float32 ``[z(256) | mu(256)]`` windows
+  (``_extract_windows``), divide and two-pass std; differentiable, its
+  backward is autograd through the plain version, as ``_fks_bwd`` is
+  ``jax.vjp`` of ``_fk_step_xla``.
+
+The first four formats take the spring statistic from the pair kernels'
+sum and sum of squares, ``max(sumsq/n - mean^2, 0)``; the last two from the
+mean and then the sum of squared deviations.  The TPU's ghost points each
+added 1e-15 N to the spring sum, which the port, having none, leaves out.
 
 Each wrapper takes the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel or raises.  ``<wrapper>.launches`` counts launches.
-The spring statistic uses the pair kernels' sum and sum of squares,
-``max(sumsq/n - mean^2, 0)``; the TPU's ghost points each added 1e-15 N to
-the spring sum, which the port, having none, leaves out.
 """
 
 from __future__ import annotations
@@ -39,11 +49,16 @@ from monoforce_tpu_torch.ops import _build
 from monoforce_tpu_torch.ops.interp_cuda import TAP_OFFSETS
 
 __all__ = ["FORMATS", "pack_consts", "pack_points", "fk_step_plain",
-           "fk_step_zu", "fk_step_muq", "fk_step_pairmu"]
+           "fk_step_zu", "fk_step_muq", "fk_step_pairmu", "fk_step_pair3",
+           "fk_step_packed", "fk_step"]
 
 # window words per trajectory, and the format codes of fk_step_launch
-FORMATS = {"zu": 256, "muq": 512, "pairmu": 256}
-_FMT_CODE = {"zu": 0, "muq": 1, "pairmu": 2}
+FORMATS = {"zu": 256, "muq": 512, "pairmu": 256, "packed": 256, "exact": 512,
+           "pair3": 256}
+_FMT_CODE = {"zu": 0, "muq": 1, "pairmu": 2, "packed": 3, "exact": 4,
+             "pair3": 5}
+# _step_math's formats: IEEE divide in the index path, two-pass spring std
+_DIVIDE = ("packed", "exact")
 
 # cst layout (fk_step_pallas.py:68-71)
 _C_DMAX, _C_RES, _C_STIFF, _C_DAMP, _C_MASS, _C_G = range(6)
@@ -114,10 +129,13 @@ def fk_step_plain(fmt, cst, patch, state, tv, sxy, pts):
     vy = v1 + w2 * rx - w0 * rz
     vz = v2 + w0 * ry - w1 * rx
 
-    # the serving kernels multiply by the reciprocal (fk_step_pallas.py:527)
-    inv_res = 1.0 / res
-    fxq = (wx + d_max) * inv_res
-    fyq = (wy + d_max) * inv_res
+    if fmt in _DIVIDE:  # fk_step_pallas.py:182-186
+        fxq = (wx + d_max) / res
+        fyq = (wy + d_max) / res
+    else:  # the pair kernels multiply by the reciprocal (:527-535)
+        inv_res = 1.0 / res
+        fxq = (wx + d_max) * inv_res
+        fyq = (wy + d_max) * inv_res
     xi = fxq.to(torch.int32)
     yi = fyq.to(torch.int32)
     xf = fxq - xi.to(torch.float32)
@@ -134,10 +152,17 @@ def fk_step_plain(fmt, cst, patch, state, tv, sxy, pts):
     def gather(base, off):
         return torch.gather(patch[:, base:base + 256], 1, idx + off)
 
-    if fmt == "pairmu":
+    def bilinear(t):
+        return w_cc * t[0] + w_cf * t[1] + w_lc * t[2] + w_fl * t[3]
+
+    if fmt == "exact":
+        tz = [gather(0, off) for off in TAP_OFFSETS]
+        mu = bilinear([gather(256, off) for off in TAP_OFFSETS])
+    elif fmt in ("pairmu", "pair3", "packed"):
         words = [gather(0, off) for off in TAP_OFFSETS]
         tz = [_hi(w) for w in words]
-        mu = _lo(words[0])
+        mu = _lo(words[0]) if fmt == "pairmu" else bilinear(
+            [_lo(w) for w in words])
     else:
         a, c = gather(0, 0), gather(0, 16)
         tz = [_hi(a), _hi(c), _lo(a), _lo(c)]
@@ -145,9 +170,8 @@ def fk_step_plain(fmt, cst, patch, state, tv, sxy, pts):
         if fmt == "muq":
             mq = gather(256, 0)
             mt = [((mq >> s) & 255).to(torch.float32) for s in (24, 16, 8, 0)]
-            mu = (w_cc * mt[0] + w_cf * mt[1] + w_lc * mt[2]
-                  + w_fl * mt[3]) * (1.0 / 64.0)
-    z = w_cc * tz[0] + w_cf * tz[1] + w_lc * tz[2] + w_fl * tz[3]
+            mu = bilinear(mt) * (1.0 / 64.0)
+    z = bilinear(tz)
     dz_dx = (tz[1] - tz[0]) / res
     dz_dy = (tz[2] - tz[0]) / res
     ninv = torch.rsqrt(dz_dx * dz_dx + dz_dy * dz_dy + 1.0)
@@ -198,7 +222,10 @@ def fk_step_plain(fmt, cst, patch, state, tv, sxy, pts):
     ay = (m * g * cst[_C_GD1] + fy_s) / m
     az = (m * g * cst[_C_GD2] + fz_s) / m
     s_mean = s_sum / n_real
-    s_var = torch.clamp(s_sumsq / n_real - s_mean * s_mean, min=0.0)
+    if fmt in _DIVIDE:  # two passes (fk_step_pallas.py:256-258)
+        s_var = ((spring - s_mean) ** 2).sum(dim=1, keepdim=True) / n_real
+    else:
+        s_var = torch.clamp(s_sumsq / n_real - s_mean * s_mean, min=0.0)
     s_std = torch.sqrt(s_var + 1e-30)
     return torch.cat([ax, ay, az, aw0, aw1, aw2, s_std, n_cp], dim=1)
 
@@ -206,8 +233,9 @@ def fk_step_plain(fmt, cst, patch, state, tv, sxy, pts):
 def _check(fmt, cst, patch, state, tv, sxy, pts):
     B = state.shape[0]
     P = pts.shape[1]
+    words = torch.float32 if fmt == "exact" else torch.int32
     expect = {"cst": (cst, torch.float32, (18,)),
-              "patch": (patch, torch.int32, (B, FORMATS[fmt])),
+              "patch": (patch, words, (B, FORMATS[fmt])),
               "state": (state, torch.float32, (B, 18)),
               "tv": (tv, torch.float32, (B, tv.shape[1])),
               "sxy": (sxy, torch.float32, (B, 2)),
@@ -231,22 +259,26 @@ class _StepKernel:
     """The step in one window format: plain version on the CPU, the CUDA
     kernel on the card, and the count of kernel launches."""
 
-    def __init__(self, fmt: str):
+    def __init__(self, fmt: str, name: str = ""):
         self.fmt = fmt
-        self.__name__ = f"fk_step_{fmt}"
+        self.__name__ = name or f"fk_step_{fmt}"
         self.launches = 0
 
     def __call__(self, cst, patch, state, tv, sxy, pts):
-        """cst: (18,) f32 (pack_consts); patch: (B, FORMATS[fmt]) int32
-        window words; state: (B, 18) f32; tv: (B, K) f32 track velocities;
-        sxy: (B, 2) f32 window corners; pts: (7, P) f32 (pack_points).
-        Returns (B, 8) f32 [ax, ay, az, aw0, aw1, aw2, spring_std, n_cp]."""
+        """cst: (18,) f32 (pack_consts); patch: (B, FORMATS[fmt]) window
+        words, int32 bit patterns (float32 values for ``exact``); state:
+        (B, 18) f32; tv: (B, K) f32 track velocities; sxy: (B, 2) f32 window
+        corners; pts: (7, P) f32 (pack_points).  Returns (B, 8) f32
+        [ax, ay, az, aw0, aw1, aw2, spring_std, n_cp]."""
         _check(self.fmt, cst, patch, state, tv, sxy, pts)
         if state.device.type == "cpu":
             return fk_step_plain(self.fmt, cst, patch, state, tv, sxy, pts)
         if state.device.type != "cuda":
             raise NotImplementedError(f"{self.__name__} runs on cuda or cpu, "
                                       f"not {state.device.type}")
+        return self.launch(cst, patch, state, tv, sxy, pts)
+
+    def launch(self, cst, patch, state, tv, sxy, pts):
         launch = _build.load("fk_step", "fk_step_launch", _ARGTYPES)
         B, P = state.shape[0], pts.shape[1]
         out = torch.empty((B, 8), dtype=torch.float32, device=state.device)
@@ -263,6 +295,38 @@ class _StepKernel:
         return out
 
 
+class _ExactStep(torch.autograd.Function):
+    """The exact step on the card: the kernel forward; backward through the
+    plain version for patch, state and tv (``_fks_bwd``, :347-353)."""
+
+    @staticmethod
+    def forward(ctx, kernel, cst, patch, state, tv, sxy, pts):
+        ctx.save_for_backward(cst, patch, state, tv, sxy, pts)
+        return _StepKernel.launch(kernel, cst, patch, state, tv, sxy, pts)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        cst, patch, state, tv, sxy, pts = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (patch, state, tv)]
+            out = fk_step_plain("exact", cst, leaves[0], leaves[1], leaves[2],
+                                sxy, pts)
+            dp, ds, dt = torch.autograd.grad(out, leaves, g)
+        return None, None, dp, ds, dt, None, None
+
+
+class _ExactStepKernel(_StepKernel):
+    """``fk_step``: the exact format, differentiable in patch, state and tv.
+    On the CPU autograd differentiates the plain version directly."""
+
+    def launch(self, cst, patch, state, tv, sxy, pts):
+        return _ExactStep.apply(self, cst, patch, state, tv, sxy, pts)
+
+
 fk_step_zu = _StepKernel("zu")
 fk_step_muq = _StepKernel("muq")
 fk_step_pairmu = _StepKernel("pairmu")
+fk_step_pair3 = _StepKernel("pair3")
+fk_step_packed = _StepKernel("packed")
+fk_step = _ExactStepKernel("exact", name="fk_step")

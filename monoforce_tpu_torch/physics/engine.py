@@ -1,9 +1,9 @@
 """Rigid-body state and robot parameters of the PyTorch port.
 
 Port of ``monoforce_tpu/physics/engine.py``: ``RigidState`` (:64-70),
-``RobotModel.from_config`` (:82-133), ``inertia_tensor`` (:136-152) and
-``_default_state0`` (:497-505).  The exact engine (``rollout`` and its
-integrators) comes with a later slice.
+``RobotModel.from_config`` (:82-133), ``inertia_tensor`` (:136-152),
+``auto_remat_segment`` (:483-494) and ``_default_state0`` (:497-505).  The
+exact engine (``rollout`` and its integrators) comes with a later slice.
 
 ``RobotModel`` holds the robot's parameter set as float32 tensors on one
 device; scalars are 0-d tensors so that the port's arithmetic runs in
@@ -14,12 +14,12 @@ is the whole parameter set of the planner path.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 __all__ = ["RigidState", "RobotModel", "inertia_tensor", "on_device",
-           "resolve_device"]
+           "resolve_device", "auto_remat_segment"]
 
 
 def resolve_device(device) -> torch.device:
@@ -131,6 +131,20 @@ def inertia_tensor(mass, points: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.stack([ixx, ixy, ixz]),
                         torch.stack([ixy, iyy, iyz]),
                         torch.stack([ixz, iyz, izz])])
+
+
+def auto_remat_segment(n: int, threshold: int = 64) -> Optional[int]:
+    """Pick a remat segment length for an N-step BPTT horizon: the divisor of
+    N closest to sqrt(N) (minimizing stored-boundaries + recompute-window
+    memory).  Returns None for short horizons where remat only adds
+    recompute."""
+    if n < threshold:
+        return None
+    target = max(1, int(round(n ** 0.5)))
+    divisors = [k for k in range(2, n) if n % k == 0]
+    if not divisors:
+        return None
+    return min(divisors, key=lambda k: abs(k - target))
 
 
 def _default_state0(controls: torch.Tensor) -> RigidState:

@@ -1,12 +1,17 @@
-"""The port's fk_interp and settle-window extractor against the JAX package.
+"""The port's fk_interp, its backward and the settle-window extractor
+against the JAX package.
 
 Inputs are made with numpy from a seed and handed to both packages; the
-JAX function runs on the CPU (its plain twin ``_fk_xla``), the port's on
-the CPU (its plain version).  Tolerance: atol 1e-6 on every output plane,
-values of order 1; both sides do the same float32 operations in the same
-order, so only the reciprocal square root may differ by an ulp or two.
+JAX function runs on the CPU (its plain twin ``_fk_xla``, and ``jax.vjp``
+through its custom VJP), the port's on the CPU (its plain versions).
+Tolerance: atol 1e-6 on every output plane, values of order 1; both sides
+do the same float32 operations in the same order, so only the reciprocal
+square root may differ by an ulp or two.  The backward: within 1e-5 of
+the largest entry of each cotangent (the same derivatives, composed in
+another order by the two autograds).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,7 +19,9 @@ import torch
 
 from monoforce_tpu.ops.interp_pallas import fk_interp as jax_fk_interp
 from monoforce_tpu.physics import fast as jfast
-from monoforce_tpu_torch.ops.interp_cuda import fk_interp, fk_interp_plain
+from monoforce_tpu_torch.ops.interp_cuda import (fk_interp, fk_interp_bwd,
+                                                 fk_interp_bwd_plain,
+                                                 fk_interp_plain)
 from monoforce_tpu_torch.physics import fast as tfast
 
 
@@ -43,6 +50,35 @@ def test_fk_interp_matches_jax(d_max, res):
     assert got.shape == want.shape == (16, 5 * 150)
     # a query put into another cell would differ by far more than atol
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("d_max,res", [(6.4, 0.1), (8.0, 0.125)])
+def test_fk_interp_bwd_matches_jax_vjp(d_max, res):
+    """d patch, d wx and d wy for a random cotangent on rough windows."""
+    args = _inputs(d_max, res, seed=5)
+    g = np.random.default_rng(6).normal(size=(16, 5 * 150)).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda p, a, b: jax_fk_interp(p, a, b, args[3], args[4]),
+                     *map(jnp.asarray, args[:3]))
+    want = [np.asarray(d) for d in vjp(jnp.asarray(g))]
+    targs = [torch.from_numpy(a) for a in args]
+    got = fk_interp_bwd_plain(*targs, torch.from_numpy(g))
+    # the wrapper on CPU tensors, and autograd through fk_interp, agree
+    leaves = [t.clone().requires_grad_() for t in targs[:3]]
+    via_autograd = torch.autograd.grad(
+        fk_interp(*leaves, *targs[3:]), leaves, torch.from_numpy(g))
+    fk_interp_bwd.launches = 0
+    for name, a, b, c, w in zip(("patch", "wx", "wy"), got,
+                                fk_interp_bwd(*targs, torch.from_numpy(g)),
+                                via_autograd, want):
+        assert torch.equal(a, b) and torch.equal(a, c), name
+        scale = np.abs(w).max()
+        assert scale > 0, name
+        np.testing.assert_allclose(a.numpy(), w, rtol=0, atol=1e-5 * scale,
+                                   err_msg=name)
+    assert fk_interp_bwd.launches == 0
+    with pytest.raises(ValueError):
+        fk_interp_bwd(*targs, torch.from_numpy(g[:, :150].copy()))
 
 
 def test_fk_interp_plain_is_what_cpu_tensors_get():

@@ -1,5 +1,5 @@
 """The port's window extractors and step kernels (plain versions) against
-the JAX package's serving extractors and step entry points.
+the JAX package's extractors and step entry points.
 
 Each case is one TPU entry point and the port's format that replaces it:
 
@@ -8,15 +8,22 @@ Each case is one TPU entry point and the port's format that replaces it:
 - ``fk_step_pair3_muq`` (P=148) -> ``muq``    on [z-pair | u8 quad] words,
   friction up to 3.9 so that quad words carry the sign bit
 - ``fk_step_pair``      (P=62)  -> ``pairmu`` on [z | mu] words
+- ``fk_step_pair3``     (P=148) -> ``pair3``  on [z | mu] words
+- ``fk_step_packed``    (P=202, husky) -> ``packed`` on [z | mu] words
+- ``fk_step``           (P=148) -> ``exact``  on f32 [z | mu] windows
 
 Inputs come from numpy with a seed; the JAX functions run on the CPU
-(their plain ``_xla`` twins) through the pair layout's reshape adapters.
-Windows: the decoded bf16 taps and the corners must be bit-equal.  Steps:
-rtol 1e-5, atol 1e-4, because the float32 sums over points run in another
-order (and the TPU layout's ghost points add 1e-15 N each to the spring
-sums).
+(their plain ``_xla`` twins), the pair entry points through the pair
+layout's reshape adapters.  Windows: the decoded bf16 taps and the corners
+must be bit-equal.  Steps: rtol 1e-5, atol 1e-4, because the float32 sums
+over points run in another order (and the TPU layout's ghost points add
+1e-15 N each to the spring sums).  Gradients of the exact step: within
+1e-4 of the largest entry, for the same reasons.  The JAX tests' oracle
+pairs (tests/test_fast.py:304-443) hold for the port's plain versions at
+their tolerances.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,9 +40,9 @@ from monoforce_tpu_torch.physics import fast as tfast
 B = 32
 
 
-def _robots(voxel):
+def _robots(voxel, robot="tradr"):
     jr = JaxRobotModel.from_config(
-        JaxPhysicsConfig(robot="tradr", mesh_voxel_size=voxel))
+        JaxPhysicsConfig(robot=robot, mesh_voxel_size=voxel))
     tr = robot_model_from_arrays(
         {n: np.asarray(getattr(jr, n)) for n in ROBOT_LEAVES}, jr.n_tracks,
         jr.has_flippers, jr.integration_mode, device="cpu")
@@ -54,10 +61,10 @@ def _rotations(rng, n, max_angle):
         np.float32)
 
 
-def _case(voxel, mu_max, seed):
+def _case(voxel, mu_max, seed, robot="tradr"):
     """Robots, grids and an (B, 18) state whose footprints lie on the
     terrain, with velocities, yaw/tilt and angular rates."""
-    jr, tr = _robots(voxel)
+    jr, tr = _robots(voxel, robot)
     rng = np.random.default_rng(seed)
     z = rng.normal(scale=0.1, size=(128, 128)).astype(np.float32)
     fr = rng.uniform(0.3, mu_max, (128, 128)).astype(np.float32)
@@ -100,13 +107,18 @@ CASES = {
     "pair3_muq": (0.1, 3.9, "muq"),
     "pair": (0.15, 1.0, "pairmu"),
 }
+# entry points on the windows of _extract_windows_packed1 (as "pair") and
+# _extract_windows (the exact f32 windows, no motion prediction)
+STEP_CASES = {**CASES, "pair3": (0.1, 2.0, "pair3"),
+              "packed": (0.1, 2.0, "packed"), "exact": (0.1, 2.0, "exact")}
 
 
 def _windows(mode, predicted, seed=0):
     """Both packages' windows for one case: JAX words (as the TPU kernel
     takes them) and the port's, plus everything the steps need."""
-    voxel, mu_max, fmt = CASES[mode]
-    jr, tr, z, fr, st, tv = _case(voxel, mu_max, seed)
+    voxel, mu_max, fmt = STEP_CASES[mode]
+    robot = "husky" if mode == "packed" else "tradr"
+    jr, tr, z, fr, st, tv = _case(voxel, mu_max, seed, robot)
     jwx, jwy = _jax_world_xy(jr, st)
     twx, twy = _torch_world_xy(tr, st)
     dq = (st[:, 3:4] * 0.32, st[:, 4:5] * 0.32) if predicted else (None, None)
@@ -127,8 +139,14 @@ def _windows(mode, predicted, seed=0):
             zj, jfast.quantize_mu_grid(frj), jwx, jwy, *args_j)
         tsxy, tw = tfast._extract_windows_zmuq(
             zt, tfast.quantize_mu_grid(frt), twx, twy, *args_t)
-    else:
+    elif mode == "pair":
         jsxy, jw = jfast._extract_windows_packed(zj, frj, jwx, jwy, *args_j)
+        tsxy, tw = tfast._extract_windows_packed1(zt, frt, twx, twy, *args_t)
+    elif mode == "exact":
+        jsxy, jw = jfast._extract_windows(zj, frj, jwx, jwy, *args_j[:2])
+        tsxy, tw = tfast._extract_windows(zt, frt, twx, twy, *args_t[:2])
+    else:
+        jsxy, jw = jfast._extract_windows_packed1(zj, frj, jwx, jwy, *args_j)
         tsxy, tw = tfast._extract_windows_packed1(zt, frt, twx, twy, *args_t)
     return dict(jr=jr, tr=tr, st=st, tv=tv, fmt=fmt, jsxy=np.asarray(jsxy),
                 jw=np.asarray(jw), tsxy=tsxy, tw=tw)
@@ -160,28 +178,122 @@ def test_window_taps_bit_equal(mode, predicted):
         assert (tw[:, 256:] < 0).any()  # quads with mu >= 2 set the sign bit
 
 
-@pytest.mark.parametrize("mode", list(CASES))
-def test_step_matches_jax_entry_point(mode):
-    w = _windows(mode, predicted=True, seed=1)
-    jr, tr, st, tv = w["jr"], w["tr"], w["st"], w["tv"]
+def _jax_step(mode, w):
+    """The JAX entry point of ``mode`` on its windows, as (B, 8)."""
+    jr, st, tv = w["jr"], jnp.asarray(w["st"]), jnp.asarray(w["tv"])
+    cst, jw, jsxy = jops.pack_consts(jr), jnp.asarray(w["jw"]), w["jsxy"]
+    if mode in ("packed", "exact"):
+        step = jops.fk_step_packed if mode == "packed" else jops.fk_step
+        return np.asarray(step(cst, jw, st, tv, jnp.asarray(jsxy),
+                               jops.pack_points(jr)))
     jstep = {"pair_zu": jops.fk_step_pair_zu,
              "pair3_zu": jops.fk_step_pair3_zu,
              "pair3_muq": jops.fk_step_pair3_muq,
-             "pair": jops.fk_step_pair}[mode]
+             "pair": jops.fk_step_pair,
+             "pair3": jops.fk_step_pair3}[mode]
     jpts = (jops.pack_points_pair if mode in ("pair_zu", "pair")
             else jops.pack_points_pair3)(jr)
-    want = np.asarray(jstep(
-        jops.pack_consts(jr), jnp.asarray(w["jw"]).reshape(B // 2, -1),
-        jnp.asarray(st).reshape(-1, 36), jnp.asarray(tv).reshape(-1, 16),
-        jnp.asarray(w["jsxy"]).reshape(-1, 4), jpts,
+    return np.asarray(jstep(
+        cst, jw.reshape(B // 2, -1), st.reshape(-1, 36), tv.reshape(-1, 16),
+        jnp.asarray(jsxy).reshape(-1, 4), jpts,
         n_k=jr.n_tracks)).reshape(-1, 8)
-    kernel = {"zu": tops.fk_step_zu, "muq": tops.fk_step_muq,
-              "pairmu": tops.fk_step_pairmu}[w["fmt"]]
-    got = kernel(tops.pack_consts(tr), w["tw"], torch.from_numpy(st),
-                 torch.from_numpy(tv[:, :tr.n_tracks].copy()), w["tsxy"],
-                 tops.pack_points(tr)).numpy()
+
+
+def _port_args(w):
+    tr = w["tr"]
+    return (tops.pack_consts(tr), w["tw"], torch.from_numpy(w["st"]),
+            torch.from_numpy(w["tv"][:, :tr.n_tracks].copy()), w["tsxy"],
+            tops.pack_points(tr))
+
+
+PORT_STEP = {"zu": tops.fk_step_zu, "muq": tops.fk_step_muq,
+             "pairmu": tops.fk_step_pairmu, "pair3": tops.fk_step_pair3,
+             "packed": tops.fk_step_packed, "exact": tops.fk_step}
+
+
+@pytest.mark.parametrize("mode", list(STEP_CASES))
+def test_step_matches_jax_entry_point(mode):
+    w = _windows(mode, predicted=mode != "exact", seed=1)
+    want = _jax_step(mode, w)
+    got = PORT_STEP[w["fmt"]](*_port_args(w)).numpy()
     assert (want[:, 7] > 1.0).all()  # every footprint is in contact
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+def test_exact_step_gradient_matches_jax():
+    """d patch, d state and d tv of fk_step against jax.vjp through the
+    JAX fk_step's custom VJP, for one random cotangent."""
+    w = _windows("exact", predicted=False, seed=2)
+    jr, K = w["jr"], w["tr"].n_tracks
+    g = np.random.default_rng(3).normal(size=(B, 8)).astype(np.float32)
+    cst, sxy, pts = (jops.pack_consts(jr), jnp.asarray(w["jsxy"]),
+                     jops.pack_points(jr))
+    _, vjp = jax.vjp(lambda p, s, t: jops.fk_step(cst, p, s, t, sxy, pts),
+                     jnp.asarray(w["jw"]), jnp.asarray(w["st"]),
+                     jnp.asarray(w["tv"]))
+    want = [np.asarray(d) for d in vjp(jnp.asarray(g))]
+    want[2] = want[2][:, :K]
+    cst_t, patch, state, tv, sxy_t, pts_t = _port_args(w)
+    leaves = [t.requires_grad_() for t in (patch, state, tv)]
+    out = tops.fk_step(cst_t, *leaves, sxy_t, pts_t)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(g))
+    for name, gt, wt in zip(("patch", "state", "tv"), got, want):
+        scale = np.abs(wt).max()
+        assert scale > 0, name
+        np.testing.assert_allclose(gt.numpy(), wt, rtol=0, atol=1e-4 * scale,
+                                   err_msg=name)
+
+
+def _oracle_inputs(voxel):
+    """tests/test_fast.py's oracle inputs: rough terrain, bodies at rest
+    with identity rotation at x, y, z in [-1, 1], two driving parts."""
+    _, tr = _robots(voxel)
+    rng = np.random.default_rng(5)
+    z = torch.from_numpy(rng.normal(scale=0.1, size=(128, 128)).astype(
+        np.float32))
+    fr = torch.from_numpy(rng.uniform(0.3, 1.0, (128, 128)).astype(np.float32))
+    st = torch.zeros((8, 18))
+    st[:, 0:3] = torch.from_numpy(rng.uniform(-1, 1, (8, 3)).astype(np.float32))
+    st[:, [6, 10, 14]] = 1.0
+    tv = torch.tensor([[0.5, 0.4]]).expand(8, 2).contiguous()
+    return tr, z, fr, st, tv
+
+
+@pytest.mark.parametrize("oracle,served", [("exact", "packed"),
+                                           ("exact", "pair3"),
+                                           ("pair3", "muq")])
+def test_oracle_pairs_hold(oracle, served):
+    """The JAX tests' accuracy oracles (tests/test_fast.py:304-443) on the
+    port's plain versions: packed and pair3 (bf16 taps) against exact, at
+    atol 0.3, rtol 0.02 on the accelerations and rtol 0.02 on the contact
+    counts; muq (u8 friction) against pair3, at rtol 1e-6 on the counts and
+    atol 0.05, rtol 0.01 on the accelerations."""
+    for voxel in (0.1, 0.11):
+        tr, z, fr, st, tv = _oracle_inputs(voxel)
+        c = tfast._make_consts(tr)
+        wx, wy = tfast._world_xy(c, st)
+        d_max, res = tr.d_max, tr.grid_res
+        windows = {
+            "exact": tfast._extract_windows(z, fr, wx, wy, d_max, res),
+            "packed": tfast._extract_windows_packed1(z, fr, wx, wy, d_max,
+                                                     res),
+            "muq": tfast._extract_windows_zmuq(
+                z, tfast.quantize_mu_grid(fr), wx, wy, d_max, res)}
+        windows["pair3"] = windows["packed"]
+        acc = {}
+        for fmt in (oracle, served):
+            sxy, patch = windows[fmt]
+            acc[fmt] = PORT_STEP[fmt](tops.pack_consts(tr), patch, st, tv,
+                                      sxy, tops.pack_points(tr)).numpy()
+        want, got = acc[oracle], acc[served]
+        if oracle == "exact":
+            np.testing.assert_allclose(got[:, :6], want[:, :6], atol=0.3,
+                                       rtol=0.02)
+            np.testing.assert_allclose(got[:, 7], want[:, 7], rtol=0.02)
+        else:
+            np.testing.assert_allclose(got[:, 7], want[:, 7], rtol=1e-6)
+            np.testing.assert_allclose(got[:, :6], want[:, :6], atol=0.05,
+                                       rtol=0.01)
 
 
 def test_step_wrappers_check_inputs():
@@ -199,3 +311,6 @@ def test_step_wrappers_check_inputs():
     bad[1] = w["tw"].float()
     with pytest.raises(TypeError):
         tops.fk_step_zu(*bad)
+    with pytest.raises(TypeError):
+        # the exact step takes float32 windows, not int32 words
+        tops.fk_step(args[0], w["tw"].repeat(1, 2), *args[2:])

@@ -45,7 +45,9 @@ def test_port_and_chip_smoke_import_no_jax():
     for mod in ("monoforce_tpu_torch.physics.fast",
                 "monoforce_tpu_torch.planner.shooting",
                 "monoforce_tpu_torch.ops.fk_step_cuda",
-                "monoforce_tpu_torch.ops.interp_cuda"):
+                "monoforce_tpu_torch.ops.interp_cuda",
+                "monoforce_tpu_torch.losses",
+                "monoforce_tpu_torch.training.fit_terrain"):
         assert mod in res["imported"]
 
 
