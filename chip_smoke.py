@@ -9,12 +9,15 @@ Phases (any failure exits non-zero before the last line is printed):
    with nvcc for sm_90a (one nvcc per source, all at once); print the card's
    name and power limit.
 2. kernels -- call each kernel's wrapper at the main path's shapes (B=4096,
-   and B=4094 for two; P=62, 148 and 202) on windows cut by the port's
+   and B=4094 for two; P=62, 148 and 202; the planner tick's B=64 for its
+   two step formats, muq and pairmu) on windows cut by the port's
    extractors from a seeded rough terrain, and hold it against its plain
    PyTorch version on the same inputs; print the largest difference, the
    tolerance, the kernel's mean device time from the profiler's trace with
-   L2 flushed, the median time of a wrapper call and of the plain version
-   between CUDA events, and the bound.  Then the JAX tests' accuracy
+   L2 flushed and with its inputs in L2, the median time of a wrapper call
+   and of the plain version between CUDA events, and the bound; beside the
+   B=64 rows, one launch's floor (a one-element ``add_`` in the same kind
+   of trace).  Then the JAX tests' accuracy
    oracles (tests/test_fast.py:304-443) on the kernels, at those tests'
    inputs: packed and pair3 against exact, muq against pair3.  That check
    is the path of the two kernels that serve only as oracles (fk_step,
@@ -30,7 +33,9 @@ Phases (any failure exits non-zero before the last line is printed):
    its positions must agree with the same rollout through the plain
    versions on the card.  The packed and pair3_muq runs are also held
    against fast_rollout (tests/test_fast.py:253-266's gate: positions and
-   the ranking of both costs).  Prints ms per batch (median, synchronised).
+   the ranking of both costs).  Prints ms per batch (median, synchronised)
+   and, from one profiled call, the card's busy time and the named
+   kernel's device time per launch.
 4. training -- ``fit_terrain`` at bench_all.py's shape (tradr, 16 x 100
    steps, 100 Adam iterations) on ground truth from fast_rollout over
    bench_all's hill.  The loss must drop 10x; each iteration must launch
@@ -212,7 +217,7 @@ def kernel_ms(fn, kernel: str, reps: int = 100, flush=None):
 
 def device_busy(fn, kernel: str):
     """One profiled call of ``fn``: (ms of all kernels on the card, ms of
-    the kernels named ``kernel``, host ms of the call)."""
+    the kernels named ``kernel``, their number, host ms of the call)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -222,12 +227,14 @@ def device_busy(fn, kernel: str):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     total = named = 0.0
+    count = 0
     for ev in prof.key_averages():
         t = ev.device_time_total / 1e3
         total += t
         if kernel in ev.key:
             named += t
-    return total, named, wall
+            count += ev.count
+    return total, named, count, wall
 
 
 def time_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -347,13 +354,22 @@ def touched_words(wx, wy, sxy, d_max, res, taps, width, reciprocal):
     return int(seen.sum())
 
 
+def launch_floor(flush):
+    """Device ms of a one-element ``add_`` in the same kind of trace as
+    :func:`kernel_ms`: (inputs in L2, L2 flushed before every launch)."""
+    one = torch.zeros(1, device=flush.device)
+    return (kernel_ms(lambda: one.add_(1.0), "add"),
+            kernel_ms(lambda: one.add_(1.0), "add", flush=flush))
+
+
 def measure(name, kernel, launch, plain, nbytes, flops, tol, flush, P,
-            results):
+            results, note=""):
     """Hold ``launch()`` (the wrapper ``name`` on its inputs) against
-    ``plain()``, time both, print one line and record it; returns ok.
-    The kernel's time ``ms`` is taken with L2 flushed before every launch,
-    so that it reads its inputs from device memory as the bound assumes;
-    ``warm_ms`` (inputs left in L2 by the last launch) is printed only."""
+    ``plain()``, time both, print one line (ending in ``note``) and record
+    it; returns ok.  The kernel's time ``ms`` is taken with L2 flushed
+    before every launch, so that it reads its inputs from device memory as
+    the bound assumes; ``warm_ms`` is with its inputs left in L2 by the
+    last launch."""
     got = launch()
     torch.cuda.synchronize()
     want = plain()
@@ -369,9 +385,9 @@ def measure(name, kernel, launch, plain, nbytes, flops, tol, flush, P,
          f"kernel {ms} ms on the card with L2 flushed ({warm_ms} ms with its "
          f"inputs in L2), {call_ms:.4f} ms per wrapper call, plain "
          f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: {nbytes} bytes, "
-         f"{flops} float ops)")
+         f"{flops} float ops){note}")
     results.setdefault(name, []).append(dict(
-        B=B, P=P, max_abs_err=err, ms=ms, call_ms=call_ms,
+        B=B, P=P, max_abs_err=err, ms=ms, warm_ms=warm_ms, call_ms=call_ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
         flops=flops))
     return good and ms is not None
@@ -404,14 +420,21 @@ def check_kernels(dev, results):
     rng = np.random.default_rng(0)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
     ok = True
-    # (robot, voxel, batch, step formats, lookup kernels); the last case is
-    # the terrain fit's shape (tradr's default 0.11 m cloud, B=16)
+    # one launch's floor, printed beside the step kernel at the tick's batch
+    floor = launch_floor(flush)
+    tick_note = (f"; launch floor at this batch: one-element add_ {floor[1]} "
+                 f"ms with L2 flushed ({floor[0]} ms with its input in L2)")
+    # (robot, voxel, batch, step formats, lookup kernels); B=64 is the
+    # planner tick's batch in its two step formats; the last case is the
+    # terrain fit's shape (tradr's default 0.11 m cloud, B=16)
     both = ("fk_interp", "fk_interp_bwd")
     cases = (("tradr", 0.15, 4096, ("zu", "pairmu"), ()),
              ("tradr", 0.1, 4096, ("zu", "muq", "pair3", "packed", "exact"),
               both),
              ("husky", 0.1, 4096, ("packed",), ()),
              ("husky", 0.1, 4094, ("packed",), ("fk_interp_bwd",)),
+             ("tradr", 0.1, 64, ("muq",), ()),
+             ("tradr", 0.15, 64, ("pairmu",), ()),
              ("tradr", 0.11, 16, (), both))
     for robot_name, voxel, B, fmts, interp in cases:
         cfg = PhysicsConfig(robot=robot_name, mesh_voxel_size=voxel)
@@ -446,7 +469,7 @@ def check_kernels(dev, results):
                 lambda a=args, k=WRAPPERS[name]: k(*a),
                 lambda a=args, f=fmt: fk_step_cuda.fk_step_plain(f, *a),
                 nbytes, B * P * STEP_FLOPS_PER_POINT[fmt], TOL["step"], flush,
-                P, results)
+                P, results, note=tick_note if B == 64 else "")
         if not interp:
             continue
         sxy0, patch0 = fast._extract_windows(z, fr, wx, wy, d_max, res)
@@ -634,7 +657,7 @@ def run_main_path(dev, launches):
             plain_ms = wall_ms(run, reps=2)
         rmse = float(((xs - positions(ref)) ** 2).mean().sqrt())
         ms = wall_ms(run, reps=reps)
-        busy, in_kernel, prof_wall = device_busy(run, kernel)
+        busy, in_kernel, n_kernel, prof_wall = device_busy(run, kernel)
         extra = ""
         if isinstance(out, PlanResult):
             rel = (out.costs - ref.costs).abs() / ref.costs.abs().clamp(min=1e-6)
@@ -653,7 +676,9 @@ def run_main_path(dev, launches):
              f"{plain_ms:.3f} ms); one profiled call: card busy {busy:.3f} ms, "
              f"{100 * busy / ms:.1f}% of the unprofiled {ms:.3f} ms "
              f"({100 * busy / prof_wall:.1f}% of the profiled call's "
-             f"{prof_wall:.3f} ms), {kernel} {in_kernel:.3f} ms")
+             f"{prof_wall:.3f} ms), {kernel} {in_kernel:.3f} ms in "
+             f"{n_kernel} launches, "
+             f"{1e3 * in_kernel / max(n_kernel, 1):.2f} us per launch")
         ok &= line_ok
     return ok
 
@@ -695,7 +720,7 @@ def run_fit(dev, launches):
     with plain_kernels():
         plain = fit(3)
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses[:3], plain))
-    busy, in_interp, prof_wall = device_busy(lambda: fit(1), "fk_interp")
+    busy, in_interp, _, prof_wall = device_busy(lambda: fit(1), "fk_interp")
     one_s = wall_ms(lambda: fit(1), reps=3) / 1e3
     ok = (good and drop >= FIT_DROP and rel <= FIT_LOSS_RTOL
           and all(np.isfinite(losses)))

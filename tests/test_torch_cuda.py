@@ -57,30 +57,91 @@ KERNEL = {"zu": fk_step_cuda.fk_step_zu, "muq": fk_step_cuda.fk_step_muq,
           "packed": fk_step_cuda.fk_step_packed, "exact": fk_step_cuda.fk_step}
 
 
+def _windows(fmt, z, fr, wx, wy, d_max, res):
+    if fmt == "zu":
+        return fast._extract_windows_zpair(z, wx, wy, d_max, res)
+    if fmt == "muq":
+        return fast._extract_windows_zmuq(z, fast.quantize_mu_grid(fr), wx,
+                                          wy, d_max, res)
+    if fmt == "exact":
+        return fast._extract_windows(z, fr, wx, wy, d_max, res)
+    return fast._extract_windows_packed1(z, fr, wx, wy, d_max, res)
+
+
 def _step_args(fmt, robot, z, fr, state, tv):
     c = fast._make_consts(robot)
     wx, wy = fast._world_xy(c, state)
-    d_max, res = robot.d_max, robot.grid_res
-    if fmt == "zu":
-        sxy, patch = fast._extract_windows_zpair(z, wx, wy, d_max, res)
-    elif fmt == "muq":
-        sxy, patch = fast._extract_windows_zmuq(
-            z, fast.quantize_mu_grid(fr), wx, wy, d_max, res)
-    elif fmt == "exact":
-        sxy, patch = fast._extract_windows(z, fr, wx, wy, d_max, res)
-    else:
-        sxy, patch = fast._extract_windows_packed1(z, fr, wx, wy, d_max, res)
+    sxy, patch = _windows(fmt, z, fr, wx, wy, robot.d_max, robot.grid_res)
     return (fk_step_cuda.pack_consts(robot), patch, state, tv, sxy,
             fk_step_cuda.pack_points(robot))
 
 
-@pytest.mark.parametrize("fmt,voxel,robot,B", [
-    ("zu", 0.15, "tradr", 64), ("zu", 0.1, "tradr", 64),
-    ("muq", 0.1, "tradr", 64), ("pairmu", 0.15, "tradr", 64),
-    ("pair3", 0.1, "tradr", 64), ("exact", 0.1, "tradr", 62),
-    ("packed", 0.1, "tradr", 50), ("packed", 0.1, "husky", 61)])
-def test_step_kernel_matches_plain(dev, fmt, voxel, robot, B):
-    args = _step_args(fmt, *_setup(voxel, dev, B=B, robot=robot))
+# the robots' clouds at these P; the other P get synthetic point planes
+# with this many driving parts
+_CLOUDS = {62: ("tradr", 0.15), 148: ("tradr", 0.1), 202: ("husky", 0.1)}
+_SYNTHETIC_PARTS = {1: 1, 31: 4, 33: 3, 256: 2}
+
+
+def _rotations(rng, B):
+    """(B, 9) row-major rotations: yaw in [-pi, pi], roll and pitch in
+    [-0.3, 0.3]."""
+    yaw, pitch, roll = (rng.uniform(-a, a, B) for a in (np.pi, 0.3, 0.3))
+    cy, sy, cp, sp, cr, sr = (f(t) for t in (yaw, pitch, roll)
+                              for f in (np.cos, np.sin))
+    R = np.stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr,
+                  sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr,
+                  -sp, cp * sr, cp * cr], axis=1)
+    return R.astype(np.float32)
+
+
+def _geometry_args(fmt, P, B, dev, seed=0):
+    """Step inputs at any P (1-256) and B: a robot's cloud where one has P
+    points, else synthetic point planes with cst[10] (n_real) set to P;
+    tilted, yawed, moving bodies at the terrain's height on rough terrain."""
+    rng = np.random.default_rng(seed)
+    robot_name, voxel = _CLOUDS.get(P, ("tradr", 0.1))
+    robot = RobotModel.from_config(
+        PhysicsConfig(robot=robot_name, mesh_voxel_size=voxel), device=dev)
+    cst = fk_step_cuda.pack_consts(robot)
+    if P in _CLOUDS:
+        pts, n_k = fk_step_cuda.pack_points(robot), robot.n_tracks
+    else:
+        n_k = _SYNTHETIC_PARTS[P]
+        p = np.zeros((7, P), np.float32)
+        p[0] = rng.uniform(-0.6, 0.6, P)
+        p[1] = rng.uniform(-0.4, 0.4, P)
+        p[2] = rng.uniform(-0.25, 0.05, P)
+        p[3:3 + n_k] = rng.integers(0, 2, (n_k, P))
+        pts = torch.from_numpy(p).to(dev)
+        cst[10] = float(P)
+    z = rng.normal(scale=0.1, size=(128, 128)).astype(np.float32)
+    fr = torch.from_numpy(rng.uniform(0.3, 3.9, (128, 128)).astype(
+        np.float32)).to(dev)
+    st = np.zeros((B, 18), np.float32)
+    st[:, 0:2] = rng.uniform(-5.0, 5.0, (B, 2))
+    ij = ((st[:, 0:2] + float(robot.d_max)) / float(robot.grid_res)).astype(
+        int)
+    st[:, 2] = z[ij[:, 0], ij[:, 1]] + rng.uniform(-0.05, 0.1, B)
+    st[:, 3:6] = rng.uniform(-1.0, 1.0, (B, 3))
+    st[:, 6:15] = _rotations(rng, B)
+    st[:, 15:18] = rng.uniform(-1.0, 1.0, (B, 3))
+    state = torch.from_numpy(st).to(dev)
+    tv = torch.from_numpy(rng.uniform(-1, 1, (B, n_k)).astype(
+        np.float32)).to(dev)
+    wx, wy = fast._world_planes(state.unbind(1), pts[0:1], pts[1:2],
+                                pts[2:3])
+    sxy, patch = _windows(fmt, torch.from_numpy(z).to(dev), fr, wx, wy,
+                          robot.d_max, robot.grid_res)
+    return cst, patch, state, tv, sxy, pts
+
+
+@pytest.mark.parametrize("B", [1, 3, 64, 4096])
+@pytest.mark.parametrize("P", [1, 31, 33, 62, 148, 202, 256])
+@pytest.mark.parametrize("fmt", list(fk_step_cuda.FORMATS))
+def test_step_kernel_matches_plain(dev, fmt, P, B):
+    """Every format at every launch geometry: one block of
+    32 * ceil(P / 32) threads a trajectory, the last warp ragged."""
+    args = _geometry_args(fmt, P, B, dev)
     kernel = KERNEL[fmt]
     kernel.launches = 0
     got = kernel(*args)
@@ -88,6 +149,17 @@ def test_step_kernel_matches_plain(dev, fmt, voxel, robot, B):
     assert kernel.launches == 1
     want = fk_step_cuda.fk_step_plain(fmt, *args)
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("P", [33, 148, 256])
+def test_muq_and_pair3_contact_counts_agree(dev, P):
+    """The same z in both formats' windows gives bit-equal contact counts:
+    the same taps, the same pinned bilinear sum and the same reduction
+    tree (the JAX muq oracle holds the counts to rtol 1e-6)."""
+    counts = [KERNEL[fmt](*_geometry_args(fmt, P, 4096, dev))[:, 7]
+              for fmt in ("muq", "pair3")]
+    assert bool((counts[0] > 0).any())
+    assert torch.equal(counts[0], counts[1])
 
 
 def test_exact_step_gradient_matches_plain(dev):
