@@ -10,14 +10,16 @@ Phases (any failure exits non-zero before the last line is printed):
    name and power limit.
 2. kernels -- call each kernel's wrapper at the main path's shapes (B=4096,
    and B=4094 for two; P=62, 148 and 202; the planner tick's B=64 for its
-   two step formats, muq and pairmu) on windows cut by the port's
-   extractors from a seeded rough terrain, and hold it against its plain
-   PyTorch version on the same inputs; print the largest difference, the
-   tolerance, the kernel's mean device time from the profiler's trace with
-   L2 flushed and with its inputs in L2, the median time of a wrapper call
-   and of the plain version between CUDA events, and the bound; beside the
-   B=64 rows, one launch's floor (a one-element ``add_`` in the same kind
-   of trace).  Then the JAX tests' accuracy
+   two step formats, muq and pairmu; the terrain fit's B=16, P=97 for the
+   two lookup kernels) on windows cut by the port's extractors from a
+   seeded rough terrain, and hold it against its plain PyTorch version on
+   the same inputs; print the largest difference, the tolerance, the
+   kernel's mean device time from the profiler's trace with L2 flushed and
+   with its inputs in L2, the median time of a wrapper call and of the
+   plain version between CUDA events, and the bound; beside the lookup
+   rows, the window words the taps touch and the 32-byte sectors that hold
+   them; beside the B=64 and B=16 rows, one launch's floor (a one-element
+   ``add_`` in the same kind of trace).  Then the JAX tests' accuracy
    oracles (tests/test_fast.py:304-443) on the kernels, at those tests'
    inputs: packed and pair3 against exact, muq against pair3.  That check
    is the path of the two kernels that serve only as oracles (fk_step,
@@ -140,9 +142,10 @@ ROLLOUT_STEPS = ("fk_step_zu", "fk_step_muq", "fk_step_pairmu",
                  "fk_step_packed")
 
 # kernel against plain version on the same inputs: |k - p| <= ATOL + RTOL |p|
-# fk_interp: FMA contraction in the bilinear sums and rsqrtf, O(1) outputs;
-# its backward: the same, and shared-memory atomics that add each cell's
-# cotangents in another order (entries up to ~1e2); steps: FMA contraction
+# fk_interp: FMA contraction in the bilinear sums, rsqrtf and the normals'
+# multiply by 1/res, O(1) outputs; its backward: the same, and each cell's
+# cotangents added in another order than autograd's (entries up to ~1e2);
+# steps: FMA contraction
 # and the per-trajectory sums over up to 256 points in another order
 # (forces of ~1e2 N, accelerations of ~1e1 m/s^2)
 TOL = {"fk_interp": (1e-5, 1e-5), "fk_interp_bwd": (1e-4, 1e-5),
@@ -339,10 +342,11 @@ def random_states(rng, B, z_grid, cfg, dev):
 
 
 def touched_words(wx, wy, sxy, d_max, res, taps, width, reciprocal):
-    """Distinct window words that the lookups at (wx, wy) read: ``taps``
-    lists (plane start, tap offset) pairs, ``width`` is the window's words
-    per trajectory.  The cell index follows the plain versions (multiply by
-    1/res in the step, divide in fk_interp)."""
+    """Distinct window words that the lookups at (wx, wy) read, and the
+    32-byte sectors (8 words, the card's unit of a gather) they lie in:
+    ``taps`` lists (plane start, tap offset) pairs, ``width`` is the
+    window's words per trajectory.  The cell index follows the plain
+    versions (multiply by 1/res in the step, divide in fk_interp)."""
     fxq = (wx + d_max) * (1.0 / res) if reciprocal else (wx + d_max) / res
     fyq = (wy + d_max) * (1.0 / res) if reciprocal else (wy + d_max) / res
     idx = (torch.clamp(fxq.to(torch.int32) - sxy[:, 0:1].to(torch.int32), 0, 14)
@@ -351,7 +355,8 @@ def touched_words(wx, wy, sxy, d_max, res, taps, width, reciprocal):
     seen = torch.zeros((wx.shape[0], width), dtype=torch.bool, device=wx.device)
     for base, off in taps:
         seen.scatter_(1, base + idx + off, True)
-    return int(seen.sum())
+    sectors = seen.view(wx.shape[0], width // 8, 8).any(dim=2)
+    return int(seen.sum()), int(sectors.sum())
 
 
 def launch_floor(flush):
@@ -363,13 +368,13 @@ def launch_floor(flush):
 
 
 def measure(name, kernel, launch, plain, nbytes, flops, tol, flush, P,
-            results, note=""):
+            results, note="", **extra):
     """Hold ``launch()`` (the wrapper ``name`` on its inputs) against
     ``plain()``, time both, print one line (ending in ``note``) and record
-    it; returns ok.  The kernel's time ``ms`` is taken with L2 flushed
-    before every launch, so that it reads its inputs from device memory as
-    the bound assumes; ``warm_ms`` is with its inputs left in L2 by the
-    last launch."""
+    it with ``extra``; returns ok.  The kernel's time ``ms`` is taken with
+    L2 flushed before every launch, so that it reads its inputs from device
+    memory as the bound assumes; ``warm_ms`` is with its inputs left in L2
+    by the last launch."""
     got = launch()
     torch.cuda.synchronize()
     want = plain()
@@ -389,7 +394,7 @@ def measure(name, kernel, launch, plain, nbytes, flops, tol, flush, P,
     results.setdefault(name, []).append(dict(
         B=B, P=P, max_abs_err=err, ms=ms, warm_ms=warm_ms, call_ms=call_ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-        flops=flops))
+        flops=flops, **extra))
     return good and ms is not None
 
 
@@ -414,15 +419,18 @@ STEP_TAPS = {"zu": [(0, 0), (0, 16)], "muq": [(0, 0), (0, 16), (256, 0)],
                        for o in interp_cuda.TAP_OFFSETS]}
 
 
-def check_kernels(dev, results):
+def check_kernels(dev, results, only=None):
     """Phase 2: every kernel against its plain version at B=4096 (and two
-    at B=4094), on rough terrain, tilted moving bodies."""
+    at B=4094), on rough terrain, tilted moving bodies.  ``only``, a set
+    of kernel names, restricts the checks to those (the inputs stay the
+    same), to compare two trees' kernels quickly."""
     rng = np.random.default_rng(0)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
     ok = True
     # one launch's floor, printed beside the step kernel at the tick's batch
+    # and the lookup kernels at the fit's
     floor = launch_floor(flush)
-    tick_note = (f"; launch floor at this batch: one-element add_ {floor[1]} "
+    floor_note = (f"; launch floor at this batch: one-element add_ {floor[1]} "
                  f"ms with L2 flushed ({floor[0]} ms with its input in L2)")
     # (robot, voxel, batch, step formats, lookup kernels); B=64 is the
     # planner tick's batch in its two step formats; the last case is the
@@ -455,13 +463,15 @@ def check_kernels(dev, results):
         for fmt in fmts:
             sxy, patch = step_windows(fmt, robot, z, fr, wx, wy, dq)
             name = "fk_step" if fmt == "exact" else f"fk_step_{fmt}"
+            if only is not None and name not in only:
+                continue
             args = (cst, patch, state, tv, sxy, pts)
             # each input read once (of the window only the words under the
             # footprint's taps), the (B, 8) output written once
-            words = touched_words(wx, wy, sxy, d_max, res, STEP_TAPS[fmt],
-                                  patch.shape[1],
-                                  reciprocal=fmt in ("zu", "muq", "pairmu",
-                                                     "pair3"))
+            words, _ = touched_words(wx, wy, sxy, d_max, res,
+                                     STEP_TAPS[fmt], patch.shape[1],
+                                     reciprocal=fmt in ("zu", "muq", "pairmu",
+                                                        "pair3"))
             nbytes = 4 * (words + sum(a.numel() for a in args if a is not patch)
                           + B * 8)
             ok &= measure(
@@ -469,15 +479,23 @@ def check_kernels(dev, results):
                 lambda a=args, k=WRAPPERS[name]: k(*a),
                 lambda a=args, f=fmt: fk_step_cuda.fk_step_plain(f, *a),
                 nbytes, B * P * STEP_FLOPS_PER_POINT[fmt], TOL["step"], flush,
-                P, results, note=tick_note if B == 64 else "")
+                P, results, note=floor_note if B == 64 else "")
         if not interp:
             continue
         sxy0, patch0 = fast._extract_windows(z, fr, wx, wy, d_max, res)
         args = (patch0, wx.contiguous(), wy.contiguous(), sxy0, c.cst)
-        words = touched_words(
+        words, sectors = touched_words(
             wx, wy, sxy0, d_max, res, STEP_TAPS["exact"], 512,
             reciprocal=False)
         queries = sum(a.numel() for a in args[1:])
+        # the gather's granularity: the bound counts the tapped words, the
+        # card moves the 32-byte sectors that hold them; the fit's batch
+        # (B=16) is one launch's latency, beside the floor
+        note = (f"; window: {words} tapped words in {sectors} 32-byte "
+                f"sectors ({32 * sectors} bytes, the bound counts "
+                f"{4 * words})" + (floor_note if B == 16 else ""))
+        if only is not None:
+            interp = [k for k in interp if k in only]
         if "fk_interp" in interp:
             ok &= measure(
                 "fk_interp", "fk_interp_kernel",
@@ -485,9 +503,11 @@ def check_kernels(dev, results):
                 lambda: interp_cuda.fk_interp_plain(*args),
                 4 * (words + queries + 5 * B * P),
                 B * P * INTERP_FLOPS_PER_POINT, TOL["fk_interp"], flush, P,
-                results)
+                results, note=note, words=words, sectors=sectors)
         g = torch.from_numpy(rng.normal(size=(B, 5 * P)).astype(
             np.float32)).to(dev)
+        if "fk_interp_bwd" not in interp:
+            continue
         # reads: the tapped words, the queries, the cotangent; writes: the
         # whole d patch row and d wx, d wy
         ok &= measure(
@@ -496,7 +516,7 @@ def check_kernels(dev, results):
             lambda: interp_cuda.fk_interp_bwd_plain(*args, g),
             4 * (words + queries + g.numel() + 512 * B + 2 * B * P),
             B * P * INTERP_BWD_FLOPS_PER_POINT, TOL["fk_interp_bwd"], flush,
-            P, results)
+            P, results, note=note, words=words, sectors=sectors)
     return ok
 
 

@@ -7,9 +7,11 @@ math ``_fk_math``, its plain twin ``_fk_xla`` and its custom VJP
 settle step; ``physics.fast.fast_rollout`` once per step as well, and
 terrain fitting differentiates through it.
 
-Two kernels: ``csrc/fk_interp.cu`` (forward, one thread per trajectory and
-point) and ``csrc/fk_interp_bwd.cu`` (backward, one block per trajectory);
-their notes say what bounds them on the H100.  For CUDA tensors
+Two kernels, each with one slot of threads per trajectory and one thread
+per point (several small trajectories a block): ``csrc/fk_interp.cu``
+(forward) and ``csrc/fk_interp_bwd.cu`` (backward, cell sums in shared
+memory in an order fixed by the inputs); their notes say what bounds them
+on the H100.  For CUDA tensors
 :func:`fk_interp` is a ``torch.autograd.Function`` whose forward launches
 the first and whose backward launches the second through
 :func:`fk_interp_bwd`.  Both wrappers take the plain versions for tensors

@@ -11,14 +11,18 @@ from __future__ import annotations
 
 import torch
 
+from monoforce_tpu_torch.physics.engine import resolve_device
+
 __all__ = ["generate_controls", "vw_to_track_vels", "time_stamps",
            "shooting_controls"]
 
 
-def time_stamps(time_horizon: float = 5.0, dt: float = 0.01, device="cpu"):
-    """linspace(0, T, int(T/dt)) like the reference's `ts` (dphysics.py:60,167)."""
+def time_stamps(time_horizon: float = 5.0, dt: float = 0.01, device="cuda"):
+    """linspace(0, T, int(T/dt)) like the reference's `ts`
+    (dphysics.py:60,167), on ``cuda`` unless the caller names another
+    device."""
     n = int(time_horizon / dt)
-    return torch.linspace(0.0, time_horizon, n, device=device)
+    return torch.linspace(0.0, time_horizon, n, device=resolve_device(device))
 
 
 def generate_controls(generator: torch.Generator, n_trajs: int = 10,

@@ -5,10 +5,10 @@ decision is taken inside the fixture, never at import).  On a machine with
 a card:  python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 Tolerances are those of chip_smoke.py: |kernel - plain| <= 1e-5 + 1e-5|p|
-for fk_interp, <= 1e-4 + 1e-5|p| for its backward (shared-memory atomics
-add in another order) and <= 1e-3 + 1e-4|p| for the steps (FMA contraction
-and sums over points in another order), rollout positions within 1 mm
-RMSE, fit losses within rtol 1e-3.
+for fk_interp, <= 1e-4 + 1e-5|p| for its backward (its cell sums add in
+another order than autograd's) and <= 1e-3 + 1e-4|p| for the steps (FMA
+contraction and sums over points in another order), rollout positions
+within 1 mm RMSE, fit losses within rtol 1e-3.
 """
 
 import numpy as np
@@ -177,27 +177,78 @@ def test_exact_step_gradient_matches_plain(dev):
         torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-4)
 
 
-def test_fk_interp_kernel_matches_plain(dev):
-    robot, z, fr, state, _ = _setup(0.1, dev)
-    c = fast._make_consts(robot)
-    wx, wy = fast._world_xy(c, state)
-    sxy, patch = fast._extract_windows(z, fr, wx, wy, robot.d_max,
-                                       robot.grid_res)
-    args = (patch, wx.contiguous(), wy.contiguous(), sxy, c.cst)
+def _interp_args(P, B, dev, seed=0, kind="mixed"):
+    """fk_interp's inputs at any P and B: rough [z | mu] windows at random
+    corners of a 12.8 m grid (d_max 6.4, res 0.1) and queries given in
+    cells.  kind "mixed": continuous queries over the window and one cell
+    around it (so the index clamps at 0 and 14), the first quarter exactly
+    on cell boundaries; "one_cell": every point of a trajectory in one
+    cell; "outside": every query beyond the window, both sides (the index
+    clamped to 0 and 14); "negative": corners at the grid's edge and
+    queries at negative cell coordinates (truncation toward zero)."""
+    rng = np.random.default_rng(seed)
+    d_max, res = np.float32(6.4), np.float32(0.1)
+    patch = np.concatenate([rng.normal(scale=0.2, size=(B, 256)),
+                            rng.uniform(0.2, 1.5, (B, 256))], axis=1)
+    sxy = rng.integers(0, 112, (B, 2)).astype(np.float32)
+    if kind == "mixed":
+        cells = sxy[:, None, :] + rng.uniform(-1.0, 17.0, (B, P, 2))
+        cells[:, :P // 4] = np.floor(cells[:, :P // 4])
+    elif kind == "one_cell":
+        cells = (sxy[:, None, :] + rng.integers(0, 15, (B, 1, 2))
+                 + rng.uniform(0.0, 1.0, (B, P, 2)))
+    elif kind == "outside":
+        side = rng.integers(0, 2, (B, P, 2))
+        cells = sxy[:, None, :] + np.where(side, rng.uniform(16.5, 40.0,
+                                                             (B, P, 2)),
+                                           rng.uniform(-30.0, -0.5,
+                                                       (B, P, 2)))
+    else:
+        sxy[:] = 0.0
+        cells = rng.uniform(-3.0, 4.0, (B, P, 2))
+    q = (cells * res - d_max).astype(np.float32)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        dev)
+    return (to(patch), to(q[..., 0]), to(q[..., 1]), to(sxy),
+            to(np.array([d_max, res])))
+
+
+INTERP_P = [1, 31, 33, 62, 97, 148, 202, 256, 300]
+INTERP_B = [1, 3, 16, 61, 4096]
+# the new design's edges: one cell (the cell sums' worst case), clamped and
+# negative indices, and a block of eight 32-point slots with a ragged last
+# block (B=61: seven blocks of eight and one of five)
+INTERP_EDGES = [("one_cell", 97, 16), ("one_cell", 256, 61),
+                ("one_cell", 300, 3), ("outside", 148, 61),
+                ("negative", 62, 61), ("negative", 202, 16),
+                ("mixed", 20, 61), ("mixed", 5, 7)]
+
+
+def _check_fk_interp(dev, P, B, kind="mixed"):
+    args = _interp_args(P, B, dev, kind=kind)
+    interp_cuda.fk_interp.launches = 0
     got = interp_cuda.fk_interp(*args)
     torch.cuda.synchronize()
+    assert interp_cuda.fk_interp.launches == 1
+    assert got.shape == (B, 5 * P)
     torch.testing.assert_close(got, interp_cuda.fk_interp_plain(*args),
                                atol=1e-5, rtol=1e-5)
 
 
-def test_fk_interp_bwd_kernel_matches_plain(dev):
-    robot, z, fr, state, _ = _setup(0.1, dev, B=61)
-    c = fast._make_consts(robot)
-    wx, wy = fast._world_xy(c, state)
-    sxy, patch = fast._extract_windows(z, fr, wx, wy, robot.d_max,
-                                       robot.grid_res)
-    args = (patch, wx.contiguous(), wy.contiguous(), sxy, c.cst)
-    g = torch.randn((61, 5 * wx.shape[1]), device=dev,
+@pytest.mark.parametrize("B", INTERP_B)
+@pytest.mark.parametrize("P", INTERP_P)
+def test_fk_interp_kernel_matches_plain(dev, P, B):
+    _check_fk_interp(dev, P, B)
+
+
+@pytest.mark.parametrize("kind,P,B", INTERP_EDGES)
+def test_fk_interp_kernel_edges(dev, kind, P, B):
+    _check_fk_interp(dev, P, B, kind)
+
+
+def _check_fk_interp_bwd(dev, P, B, kind="mixed"):
+    args = _interp_args(P, B, dev, kind=kind)
+    g = torch.randn((B, 5 * P), device=dev,
                     generator=torch.Generator(dev).manual_seed(2))
     interp_cuda.fk_interp_bwd.launches = 0
     got = interp_cuda.fk_interp_bwd(*args, g)
@@ -205,12 +256,46 @@ def test_fk_interp_bwd_kernel_matches_plain(dev):
     assert interp_cuda.fk_interp_bwd.launches == 1
     for a, b in zip(got, interp_cuda.fk_interp_bwd_plain(*args, g)):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
+    # the cell sums run in an order fixed by the inputs: the same d patch
+    # from run to run
+    again = interp_cuda.fk_interp_bwd(*args, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     # autograd through fk_interp on the card runs the backward kernel
     leaves = [t.clone().requires_grad_() for t in args[:3]]
-    via = torch.autograd.grad(interp_cuda.fk_interp(*leaves, sxy, c.cst),
+    via = torch.autograd.grad(interp_cuda.fk_interp(*leaves, *args[3:]),
                               leaves, g)
-    assert interp_cuda.fk_interp_bwd.launches == 2
+    assert interp_cuda.fk_interp_bwd.launches == 3
     for a, b in zip(via, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B", INTERP_B)
+@pytest.mark.parametrize("P", INTERP_P)
+def test_fk_interp_bwd_kernel_matches_plain(dev, P, B):
+    _check_fk_interp_bwd(dev, P, B)
+
+
+@pytest.mark.parametrize("kind,P,B", INTERP_EDGES)
+def test_fk_interp_bwd_kernel_edges(dev, kind, P, B):
+    _check_fk_interp_bwd(dev, P, B, kind)
+
+
+def test_fk_interp_kernels_on_a_robot_cloud(dev):
+    """Both lookup kernels on windows cut by the settle step's extractor
+    from rough terrain, at tradr's 0.1 m cloud (P=148)."""
+    robot, z, fr, state, _ = _setup(0.1, dev, B=61)
+    c = fast._make_consts(robot)
+    wx, wy = fast._world_xy(c, state)
+    sxy, patch = fast._extract_windows(z, fr, wx, wy, robot.d_max,
+                                       robot.grid_res)
+    args = (patch, wx.contiguous(), wy.contiguous(), sxy, c.cst)
+    torch.testing.assert_close(interp_cuda.fk_interp(*args),
+                               interp_cuda.fk_interp_plain(*args),
+                               atol=1e-5, rtol=1e-5)
+    g = torch.randn((61, 5 * wx.shape[1]), device=dev,
+                    generator=torch.Generator(dev).manual_seed(2))
+    for a, b in zip(interp_cuda.fk_interp_bwd(*args, g),
+                    interp_cuda.fk_interp_bwd_plain(*args, g)):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
 
 

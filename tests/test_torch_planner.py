@@ -16,12 +16,14 @@ import pytest
 import torch
 
 from monoforce_tpu.config import PhysicsConfig as JaxPhysicsConfig
+from monoforce_tpu.physics.controls import time_stamps as jax_time_stamps
 from monoforce_tpu.physics.engine import RobotModel as JaxRobotModel
 from monoforce_tpu.physics.fast import planner_kernel_mode as jax_mode
 from monoforce_tpu.physics.fast import planner_rollout as jax_rollout
 from monoforce_tpu.planner.shooting import Planner as JaxPlanner
 from monoforce_tpu_torch.config import PhysicsConfig
 from monoforce_tpu_torch.convert import ROBOT_LEAVES, robot_model_from_arrays
+from monoforce_tpu_torch.physics.controls import time_stamps
 from monoforce_tpu_torch.physics.engine import RigidState, RobotModel
 from monoforce_tpu_torch.physics.fast import planner_kernel_mode, planner_rollout
 from monoforce_tpu_torch.planner.shooting import Planner
@@ -187,6 +189,21 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         cfg.robot_model()
     assert Planner(cfg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("horizon,dt", [(5.0, 0.01), (0.37, 0.013)])
+def test_time_stamps_match_jax(horizon, dt):
+    """time_stamps on the CPU gives the JAX package's stamps; without a
+    device it runs on cuda, so with no card it raises."""
+    got = time_stamps(horizon, dt, device="cpu")
+    want = np.asarray(jax_time_stamps(horizon, dt))
+    assert got.shape == want.shape and got.device.type == "cpu"
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    if torch.cuda.is_available():
+        assert time_stamps(horizon, dt).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        time_stamps(horizon, dt)
 
 
 def test_sample_controls_shape_and_ranges():
