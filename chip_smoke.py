@@ -44,7 +44,21 @@ Phases (any failure exits non-zero before the last line is printed):
    fk_interp and its backward kernel 101 times each; the first three
    losses must agree with the same fit through the plain versions.  Prints
    seconds per iteration and the card's busy share.
-5. one JSON line listing every kernel with its launches on the main path,
+5. online tick -- ``MonoForce.run`` at full width: the default
+   ``LSSConfig`` (four cameras at 256 x 416, EfficientNet-B0, 59 depth bins,
+   camC 64, the 128 x 128 BEV grid at 0.1 m) in front of
+   ``PhysicsConfig.for_planner("tradr")`` (P=62, 64 x 500, the friction
+   head as the friction grid: mode pair), on a rig of four level cameras
+   at yaw 0, 90, 180 and 270 degrees, 0.5 m up, focal 400 px, with seeded
+   weights (``init_params``, perturbed by 0.05 noise) and seeded images;
+   the float32 mode and ``half=True``.  Each tick must launch
+   fk_step_pairmu 500 times and fk_interp once; the card's float32 heads
+   must agree with the same weights' forward on the CPU, the half heads
+   with the float32 ones at the JAX package's gate, the heads keep their
+   ranges, and the plan's costs are finite.  Prints the share of frustum
+   points the splat keeps, ms per tick (encoder and plan apart) and the
+   card's busy share from one profiled tick.
+6. one JSON line listing every kernel with its launches on the main path,
    its largest difference from the plain version, its time, the plain
    version's time and its bound on this card.
 
@@ -64,12 +78,15 @@ import time
 import numpy as np
 import torch
 
-from monoforce_tpu_torch.config import PhysicsConfig
+from monoforce_tpu_torch.config import LSSConfig, PhysicsConfig
+from monoforce_tpu_torch.models.terrain_encoder.geometry import get_geometry
 from monoforce_tpu_torch.ops import _build, fk_step_cuda, interp_cuda
 from monoforce_tpu_torch.physics import fast
+from monoforce_tpu_torch.physics.controls import shooting_controls
 from monoforce_tpu_torch.physics.engine import RobotModel
+from monoforce_tpu_torch.pipeline import MonoForce
 from monoforce_tpu_torch.planner.shooting import (Planner, PlanResult,
-                                                  force_variance_cost,
+                                                  _plan, force_variance_cost,
                                                   inclination_cost)
 from monoforce_tpu_torch.training import fit_terrain
 
@@ -162,6 +179,15 @@ FIT_LOSS_RTOL = 1e-3
 # positions of a whole rollout, kernels against plain versions: rounding
 # differences grow over the steps; 1 mm RMSE is 1% of a 0.1 m grid cell
 POS_RMSE_TOL_M = 1e-3
+# the online tick: the card's float32 heads against the CPU's, largest
+# difference (cuDNN's algorithms and the splat's atomics add in other
+# orders than the CPU, over ~60 layers; heads O(0.1-1); 2-3e-5 measured on
+# an H100); the half mode against float32, RMSE per head: the JAX
+# package's gate (tests/test_encoder.py:178-181)
+TICK_CPU_ATOL = 2e-4
+TICK_HALF_GATE = {"terrain": 0.02, "geom": 0.02, "friction": 0.05}
+TICK_SEED = 1        # init_params; with the noise seed below every head
+TICK_NOISE_SEED = 3  # carries signal (a ReLU head can be zero everywhere)
 
 
 def _say(*parts):
@@ -759,6 +785,160 @@ def run_fit(dev, launches):
     return ok
 
 
+def camera_rig(n_cams, hw, focal, height, dev):
+    """Calibrations (B=1) of ``n_cams`` level cameras at even yaws from 0,
+    ``height`` up, principal point at the image centre, no augmentation:
+    camera z (the optical axis) along the ego's horizontal, x right, y
+    down."""
+    H, W = hw
+    to_ego = np.array([[0, 0, 1], [-1, 0, 0], [0, -1, 0]], np.float64)
+    rots = []
+    for k in range(n_cams):
+        a = 2 * np.pi * k / n_cams
+        yaw = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                        [0, 0, 1]])
+        rots.append(yaw @ to_ego)
+    K = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]])
+    calib = (np.stack(rots), np.tile([0.0, 0.0, height], (n_cams, 1)),
+             np.tile(K, (n_cams, 1, 1)), np.tile(np.eye(3), (n_cams, 1, 1)),
+             np.zeros((n_cams, 3)))
+    return [torch.tensor(a[None], dtype=torch.float32, device=dev)
+            for a in calib]
+
+
+def kept_share(model, calib) -> float:
+    """The share of frustum points that fall inside the BEV grid (the
+    splat's test, ops/voxel_pool.py)."""
+    geom = get_geometry(model.frustum, *calib)
+    vox = ((geom - (model.bx - model.dx / 2.0)) / model.dx).to(torch.int32)
+    nx = torch.as_tensor(model.nx, dtype=torch.int32, device=vox.device)
+    return float(((vox >= 0) & (vox < nx)).all(dim=-1).float().mean())
+
+
+def perturbed_state(mf, seed: int, scale: float = 0.05) -> dict:
+    """``mf``'s state_dict with seeded noise added to every float tensor
+    (tests/test_encoder.py:157-163), so that the heads carry signal."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in mf.model.state_dict().items():
+        if v.is_floating_point():
+            v = v.cpu() + scale * torch.randn(v.shape, generator=gen)
+        out[k] = v.cpu()
+    return out
+
+
+def run_online_tick(dev, launches, card):
+    """Phase 5: MonoForce.run at full width, float32 and half."""
+    cfg = PhysicsConfig.for_planner("tradr")
+    lss = LSSConfig()
+    H, W = lss.data_aug_conf["final_dim"]
+    ok = True
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.normal(size=(1, 4, 3, H, W)).astype(
+        np.float32)).to(dev)
+    calib = camera_rig(4, (H, W), 400.0, 0.5, dev)
+
+    mfs = {"f32": MonoForce(cfg, lss, device=dev),
+           "half": MonoForce(cfg, lss, half=True, device=dev)}
+    mfs["f32"].init_params(TICK_SEED)
+    sd = perturbed_state(mfs["f32"], TICK_NOISE_SEED)
+    for mf in mfs.values():
+        mf.load_state_dict(sd)
+    share = kept_share(mfs["f32"].model, calib)
+    _say(f"tick rig: 4 cameras {H}x{W}, focal 400 px, 0.5 m up, yaw 0/90/"
+         f"180/270; D={mfs['f32'].model.D} depth bins; the splat keeps "
+         f"{100 * share:.2f}% of the frustum points")
+
+    gen = torch.Generator(device=dev)
+
+    def controls():
+        gen.manual_seed(7)
+        return shooting_controls(gen, cfg.n_sim_trajs, cfg.vel_max,
+                                 cfg.omega_max, cfg.traj_sim_time, cfg.dt)[0]
+
+    heads, calls = {}, {}
+    for name, mf in mfs.items():
+        def tick(mf=mf):
+            gen.manual_seed(7)
+            return mf.run(imgs, *calib, generator=gen)
+
+        for w in WRAPPERS.values():
+            w.launches = 0
+        terrain, plan = tick()
+        torch.cuda.synchronize()
+        counts = {n: w.launches for n, w in WRAPPERS.items()}
+        for n, v in counts.items():
+            launches[entry(n, 62)] = launches.get(entry(n, 62), 0) + v
+        want = {n: 0 for n in WRAPPERS}
+        want["fk_step_pairmu"], want["fk_interp"] = 500, 1
+        good = counts == want
+        heads[name] = {k: v.cpu() for k, v in terrain.items()}
+        finite = (all(bool(torch.isfinite(v).all()) for v in terrain.values())
+                  and bool(torch.isfinite(plan.costs).all())
+                  and bool(torch.isfinite(plan.xs).all()))
+        best = int(plan.best)
+        ranges = (float(terrain["geom"].min()) >= -1.0
+                  and float(terrain["geom"].max()) <= 1.0
+                  and float(terrain["diff"].min()) >= 0.0
+                  and float(terrain["friction"].min()) >= 0.0)
+        signal = {k: round(float(v.abs().mean()), 5) for k, v in terrain.items()}
+        z, fr = terrain["terrain"][0, 0], terrain["friction"][0, 0]
+        calls[name] = {
+            "tick": tick,
+            "encoder": lambda mf=mf: mf.encode(imgs, *calib),
+            # the plan alone, on this tick's terrain and controls
+            "plan": lambda mf=mf, z=z, fr=fr, c=controls(): _plan(
+                mf.robot, z, fr, c, None, mf.cost)}
+        line_ok = good and finite and ranges and 0 <= best < cfg.n_sim_trajs
+        _say(f"tick {name}: launches "
+             f"{ {n: v for n, v in counts.items() if v} } "
+             f"{'ok' if good else 'WRONG, want fk_step_pairmu 500, fk_interp 1'}"
+             f"; heads mean |x| {signal}, ranges "
+             f"{'ok' if ranges else 'VIOLATED'}; best path {best}, costs "
+             f"finite {finite} {'ok' if line_ok else 'FAILED'}")
+        ok &= line_ok
+
+    # ms per call, medians of 10 synchronised calls, in the order f32,
+    # half, half, f32 (the host's speed drifts within a run)
+    ms = {name: {part: [] for part in calls[name]} for name in mfs}
+    for name in ("f32", "half", "half", "f32"):
+        for part, fn in calls[name].items():
+            ms[name][part].append(wall_ms(fn, reps=10))
+    for name in mfs:
+        busy, in_step, n_step, prof_wall = device_busy(calls[name]["tick"],
+                                                       "fk_step_kernel")
+        enc_busy, _, _, enc_wall = device_busy(calls[name]["encoder"], "conv")
+        tick_ms = statistics.mean(ms[name]["tick"])
+        _say(f"tick {name} timing: "
+             + "; ".join(f"{part} {' and '.join(f'{t:.3f}' for t in v)} ms"
+                         for part, v in ms[name].items())
+             + f" (each a median of 10 calls; two rounds); one profiled tick: "
+             f"card busy {busy:.3f} ms, {100 * busy / tick_ms:.1f}% of the "
+             f"unprofiled {tick_ms:.3f} ms ({100 * busy / prof_wall:.1f}% of "
+             f"the profiled {prof_wall:.3f} ms), fk_step_kernel "
+             f"{in_step:.3f} ms in {n_step} launches; one profiled encoder "
+             f"call: card busy {enc_busy:.3f} ms of {enc_wall:.3f} ms "
+             f"[{card}]")
+
+    # the card's float32 encoder against the same weights on the CPU
+    cpu = MonoForce(cfg, lss, device="cpu")
+    cpu.load_state_dict(sd)
+    want = cpu.encode(imgs.cpu(), *[c.cpu() for c in calib])
+    errs = {k: float((heads["f32"][k] - want[k]).abs().max()) for k in want}
+    good = all(e <= TICK_CPU_ATOL for e in errs.values())
+    _say(f"tick f32 card against CPU: max |card - cpu| per head "
+         f"{ {k: f'{e:.3e}' for k, e in errs.items()} } (tol "
+         f"{TICK_CPU_ATOL:g}) {'ok' if good else 'MISMATCH'} [{card}]")
+    ok &= good
+    rmses = {k: float(((heads["half"][k] - heads["f32"][k]) ** 2).mean().sqrt())
+             for k in heads["f32"]}
+    good = all(rmses[k] < tol for k, tol in TICK_HALF_GATE.items())
+    _say(f"tick half against f32: RMSE per head "
+         f"{ {k: f'{e:.3e}' for k, e in rmses.items()} } (gate "
+         f"{TICK_HALF_GATE}) {'ok' if good else 'FAILED'} [{card}]")
+    return ok and good
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -782,7 +962,9 @@ def main() -> int:
     for phase, fn in (("kernels", lambda: check_kernels(dev, results)),
                       ("oracles", lambda: check_oracles(dev, launches)),
                       ("main path", lambda: run_main_path(dev, launches)),
-                      ("training", lambda: run_fit(dev, launches))):
+                      ("training", lambda: run_fit(dev, launches)),
+                      ("online tick",
+                       lambda: run_online_tick(dev, launches, card))):
         t1 = time.perf_counter()
         good = fn()
         _say(f"phase {phase}: {'ok' if good else 'FAILED'} in "

@@ -5,9 +5,11 @@ The JAX package ``monoforce_tpu`` stays the reference; this package imports
 nothing of it and no JAX.  Its layout mirrors the JAX package's, so each
 module's counterpart has the same path.  Ported so far: the shooting
 planner's serving path in every mode, the differentiable rollout and
-terrain fitting through it.
+terrain fitting through it, the LSS terrain encoder and the online tick
+(images to the best path).
 
-- ``monoforce_tpu_torch.config``   -- ``PhysicsConfig`` (own copy).
+- ``monoforce_tpu_torch.config``   -- ``PhysicsConfig``, ``LSSConfig`` (own
+  copies).
 - ``monoforce_tpu_torch.physics``  -- robot model, controls, the planner
   rollout (``physics.fast.planner_rollout``) and the differentiable one
   (``physics.fast.fast_rollout``).
@@ -17,21 +19,29 @@ terrain fitting through it.
 - ``monoforce_tpu_torch.losses``   -- the training losses.
 - ``monoforce_tpu_torch.training`` -- ``fit_terrain``: terrain and friction
   fitted by gradient descent through the rollout.
+- ``monoforce_tpu_torch.models``   -- the LSS terrain encoder
+  (``LiftSplatShoot``, reference module and state_dict names).
+- ``monoforce_tpu_torch.pipeline`` -- ``MonoForce``: images -> terrain ->
+  sampled rollouts -> best path.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
-from monoforce_tpu_torch.config import PhysicsConfig
+from monoforce_tpu_torch.config import LSSConfig, PhysicsConfig
 
 __version__ = "0.1.0"
 
-__all__ = ["PhysicsConfig", "Planner", "fit_terrain", "__version__"]
+__all__ = ["PhysicsConfig", "LSSConfig", "Planner", "MonoForce",
+           "fit_terrain", "__version__"]
 
 
 def __getattr__(name):
     if name == "Planner":
         from monoforce_tpu_torch.planner import Planner
         return Planner
+    if name == "MonoForce":
+        from monoforce_tpu_torch.pipeline import MonoForce
+        return MonoForce
     if name == "fit_terrain":
         from monoforce_tpu_torch.training import fit_terrain
         return fit_terrain

@@ -1,7 +1,8 @@
 """Configuration layer of the PyTorch port.
 
-Port of ``monoforce_tpu/config.py:37-234`` (``PhysicsConfig``), kept as an
-own copy so that the port imports nothing of the JAX package.  The field
+Port of ``monoforce_tpu/config.py`` (``PhysicsConfig``, :37-234;
+``DEFAULT_LSS_CONFIG`` and ``LSSConfig``, :236-324), kept as an own copy so
+that the port imports nothing of the JAX package.  The field
 surface mirrors the reference ``DPhysConfig`` (reference: monoforce/src/
 monoforce/models/traj_predictor/dphys_config.py:77-188): robot presets
 (tradr/marv/husky), contact points, driving-part masks, grid geometry,
@@ -9,7 +10,10 @@ terrain defaults and shooting parameters, with a YAML round trip.
 
 The config is host side (numpy and Python scalars).  Device tensors are made
 once by :meth:`PhysicsConfig.robot_model`, on ``cuda`` unless the caller
-asks for another device.  ``LSSConfig`` comes with the encoder slice.
+asks for another device.  ``LSSConfig`` mirrors the reference's
+``lss_cfg.yaml`` (reference: monoforce/config/lss_cfg.yaml) for the terrain
+encoder: grid and depth bounds and image augmentation.  PyYAML is imported
+inside the YAML methods only.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import numpy as np
 
 from monoforce_tpu_torch import robots as _robots
 
-__all__ = ["PhysicsConfig"]
+__all__ = ["PhysicsConfig", "LSSConfig", "DEFAULT_LSS_CONFIG"]
 
 
 _ROBOT_MASS = {"tradr": 40.0, "marv": 60.0, "husky": 50.0}
@@ -215,3 +219,96 @@ class PhysicsConfig:
                     v = tuple(v)
                 setattr(cfg, k, v)
         return cfg
+
+
+# ---------------------------------------------------------------------- LSS
+DEFAULT_LSS_CONFIG = {
+    # image augmentation (lss_cfg.yaml:1-17)
+    "data_aug_conf": {
+        "H": 1200,
+        "W": 1920,
+        "final_dim": (256, 416),
+        "resize_lim": (0.193, 0.225),
+        "bot_pct_lim": (0.0, 0.0),
+        "rot_lim": (-5.4, 5.4),
+        "rand_flip": False,
+    },
+    # BEV grid / depth bins (lss_cfg.yaml:19-34)
+    "grid_conf": {
+        "xbound": (-6.4, 6.4, 0.1),
+        "ybound": (-6.4, 6.4, 0.1),
+        "zbound": (-3.2, 3.2, 6.4),
+        "dbound": (0.6, 6.4, 0.1),
+    },
+    "img_mean": (0.485, 0.456, 0.406),
+    "img_std": (0.229, 0.224, 0.225),
+    # terrain classes considered soft / traversable (lss_cfg.yaml:55-60)
+    "soft_classes": ("tree-foliage", "bush", "grass", "sky", "unlabelled"),
+}
+
+
+@dataclass
+class LSSConfig:
+    """Terrain-encoder configuration (grid + augmentation), LSS-compatible."""
+
+    data_aug_conf: dict = field(default_factory=lambda: dict(DEFAULT_LSS_CONFIG["data_aug_conf"]))
+    grid_conf: dict = field(default_factory=lambda: dict(DEFAULT_LSS_CONFIG["grid_conf"]))
+    img_mean: tuple = DEFAULT_LSS_CONFIG["img_mean"]
+    img_std: tuple = DEFAULT_LSS_CONFIG["img_std"]
+    soft_classes: tuple = DEFAULT_LSS_CONFIG["soft_classes"]
+    outC: int = 1
+    camC: int = 64
+    downsample: int = 16
+
+    @classmethod
+    def preset(cls, name: str) -> "LSSConfig":
+        """Named presets matching the two committed reference configs:
+
+        - ``default``: the offline/training geometry (lss_cfg.yaml --
+          1200x1920 raw images, train-time augmentation limits),
+        - ``resize``: the online geometry (lss_cfg_resize.yaml + the
+          img_preproc.launch 480x300 resize nodelets) -- raw images arrive
+          pre-resized to 300x480 and the aug-limit keys are absent (val-mode
+          augmentation touches only bot_pct_lim/final_dim).
+        """
+        if name == "default":
+            return cls()
+        if name == "resize":
+            return cls(data_aug_conf={
+                "H": 300, "W": 480,
+                "final_dim": (256, 416),
+                "bot_pct_lim": (0.0, 0.0),
+            })
+        raise ValueError(f"unknown LSS preset {name!r} "
+                         "(expected 'default' or 'resize')")
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "LSSConfig":
+        import yaml
+        with open(path, "r") as f:
+            params = yaml.safe_load(f)
+        kw = {}
+        for k in ("data_aug_conf", "grid_conf", "img_mean", "img_std", "soft_classes"):
+            if k in params:
+                v = params[k]
+                if isinstance(v, list):
+                    v = tuple(v)
+                kw[k] = v
+        for conf_key in ("data_aug_conf", "grid_conf"):
+            if conf_key in kw:
+                kw[conf_key] = {k: tuple(v) if isinstance(v, list) else v
+                                for k, v in kw[conf_key].items()}
+        return cls(**kw)
+
+    def to_yaml(self, path: str):
+        import yaml
+        out = dataclasses.asdict(self)
+
+        def _clean(v):
+            if isinstance(v, tuple):
+                return [_clean(x) for x in v]
+            if isinstance(v, dict):
+                return {k: _clean(x) for k, x in v.items()}
+            return v
+        with open(path, "w") as f:
+            yaml.safe_dump(_clean(out), f)

@@ -384,3 +384,114 @@ def test_kernels_refuse_mixed_devices(dev):
     with pytest.raises(ValueError):
         fk_step_cuda.fk_step_zu(fk_step_cuda.pack_consts(robot), patch.cpu(),
                                 state, tv, sxy, fk_step_cuda.pack_points(robot))
+
+
+# ------------------------------------------------------ the online tick
+
+
+def _tick_setup(dev, half=False, n_cams=2):
+    """A MonoForce at a small size (32 x 64 images, the 128 x 128 grid,
+    tradr's planner preset over 0.4 s, 16 trajectories: mode pair) on
+    ``dev``, seeded weights perturbed by 0.05 noise, a rig of level
+    cameras yawed off the axes, seeded images."""
+    from monoforce_tpu_torch.config import LSSConfig
+    from monoforce_tpu_torch.pipeline import MonoForce
+
+    lss = LSSConfig(data_aug_conf={"final_dim": (32, 64)},
+                    grid_conf={"xbound": (-6.4, 6.4, 0.1),
+                               "ybound": (-6.4, 6.4, 0.1),
+                               "zbound": (-3.2, 3.2, 6.4),
+                               "dbound": (0.6, 3.0, 0.2)})
+    cfg = PhysicsConfig.for_planner("tradr", traj_sim_time=0.4)
+    cfg.n_sim_trajs = 16
+    mf = MonoForce(cfg, lss, half=half, device=dev)
+    mf.init_params(1)
+    gen = torch.Generator().manual_seed(3)
+    mf.load_state_dict({k: v.cpu() + 0.05 * torch.randn(v.shape, generator=gen)
+                        if v.is_floating_point() else v.cpu()
+                        for k, v in mf.model.state_dict().items()})
+    rng = np.random.default_rng(0)
+    to_ego = np.array([[0, 0, 1], [-1, 0, 0], [0, -1, 0]])
+    rots = []
+    for k in range(n_cams):
+        a = 0.3 + 2 * np.pi * k / n_cams
+        rots.append(np.array([[np.cos(a), -np.sin(a), 0],
+                              [np.sin(a), np.cos(a), 0], [0, 0, 1]]) @ to_ego)
+    K = np.array([[41.3, 0, 32], [0, 41.3, 16], [0, 0, 1]])
+    calib = [np.stack(rots), np.tile([0, 0, 0.53], (n_cams, 1)),
+             np.tile(K, (n_cams, 1, 1)), np.tile(np.eye(3), (n_cams, 1, 1)),
+             np.zeros((n_cams, 3))]
+    imgs = rng.normal(size=(1, n_cams, 3, 32, 64))
+    return mf, [torch.tensor(a, dtype=torch.float32, device=dev)
+                for a in [imgs] + [c[None] for c in calib]]
+
+
+@pytest.mark.parametrize("half", [False, True], ids=["f32", "half"])
+def test_encoder_on_the_card_matches_cpu(dev, half):
+    """The encoder's float32 forward on the card (TF32 off inside it)
+    against the CPU within 2e-4 per head (chip_smoke.py's tolerance); the
+    half mode's within RMSE 0.005 of the CPU's half mode."""
+    mf, inputs = _tick_setup(dev, half)
+    cpu, cpu_inputs = _tick_setup(torch.device("cpu"), half)
+    got = mf.encode(*inputs)
+    want = cpu.encode(*cpu_inputs)
+    for k, v in want.items():
+        assert got[k].dtype == torch.float32
+        if half:
+            assert float(((got[k].cpu() - v) ** 2).mean().sqrt()) < 0.005, k
+        else:
+            assert float((got[k].cpu() - v).abs().max()) <= 2e-4, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_voxel_pool_on_the_card_matches_cpu(dev, dtype):
+    """index_add_ on the card adds with atomics, in another order than the
+    CPU: float32 sums within 1e-5; bf16 sums, rounded to bf16 after every
+    add, within 2^-6 of the sum of their terms' magnitudes (a point in
+    the wrong cell would be off by its whole feature)."""
+    from monoforce_tpu_torch.models.terrain_encoder.geometry import gen_dx_bx
+    from monoforce_tpu_torch.ops.voxel_pool import voxel_pool
+
+    rng = np.random.default_rng(8)
+    dx, bx, nx = gen_dx_bx((-1.0, 1.0, 0.25), (-1.5, 1.5, 0.25), (-1.0, 1.0, 1.0))
+    geom = rng.uniform([-1.2, -1.8, -1.2], [1.2, 1.8, 1.2],
+                       (2, 2, 3, 4, 5, 3)).astype(np.float32)
+    feats = rng.normal(size=(2, 2, 3, 4, 5, 16)).astype(np.float32)
+    args = [torch.from_numpy(geom), torch.from_numpy(feats).to(dtype),
+            torch.from_numpy(dx), torch.from_numpy(bx)]
+    want = voxel_pool(*args, nx).float()
+    got = voxel_pool(*[a.to(dev) for a in args], nx).float().cpu()
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-5
+    else:
+        mags = voxel_pool(args[0], args[1].float().abs(), *args[2:], nx)
+        assert bool(((got - want).abs() <= 2 ** -6 * mags).all())
+
+
+def test_monoforce_run_launches_the_kernels(dev):
+    """One tick on the card launches fk_step_pairmu once per step and
+    fk_interp once (mode pair: the friction head is the friction grid),
+    and plans as the CPU does on the card's terrain (positions within
+    1 mm RMSE)."""
+    from monoforce_tpu_torch.physics.controls import shooting_controls
+    from monoforce_tpu_torch.planner.shooting import _plan
+
+    mf, inputs = _tick_setup(dev)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    terrain, plan = mf.run(*inputs,
+                           generator=torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    want = {n: 0 for n in WRAPPERS}
+    want["fk_step_pairmu"], want["fk_interp"] = 40, 1
+    assert {n: w.launches for n, w in WRAPPERS.items()} == want
+    assert torch.isfinite(plan.costs).all() and 0 <= int(plan.best) < 16
+    cpu = RobotModel.from_config(mf.dphys_cfg, device="cpu")
+    cfg = mf.dphys_cfg
+    controls, _ = shooting_controls(torch.Generator(dev).manual_seed(0), 16,
+                                    cfg.vel_max, cfg.omega_max,
+                                    cfg.traj_sim_time, cfg.dt)
+    ref = _plan(cpu, terrain["terrain"][0, 0].cpu(),
+                terrain["friction"][0, 0].cpu(), controls.cpu(), None, mf.cost)
+    rmse = float(((plan.xs.cpu() - ref.xs) ** 2).mean().sqrt())
+    assert rmse < 1e-3, rmse

@@ -47,7 +47,11 @@ def test_port_and_chip_smoke_import_no_jax():
                 "monoforce_tpu_torch.ops.fk_step_cuda",
                 "monoforce_tpu_torch.ops.interp_cuda",
                 "monoforce_tpu_torch.losses",
-                "monoforce_tpu_torch.training.fit_terrain"):
+                "monoforce_tpu_torch.training.fit_terrain",
+                "monoforce_tpu_torch.ops.voxel_pool",
+                "monoforce_tpu_torch.models.terrain_encoder.lss",
+                "monoforce_tpu_torch.convert",
+                "monoforce_tpu_torch.pipeline"):
         assert mod in res["imported"]
 
 
