@@ -39,8 +39,9 @@ Phases (any failure exits non-zero before the last line is printed):
    and, from one profiled call, the card's busy time and the named
    kernel's device time per launch.
 4. training -- ``fit_terrain`` at bench_all.py's shape (tradr, 16 x 100
-   steps, 100 Adam iterations) on ground truth from fast_rollout over
-   bench_all's hill.  The loss must drop 10x; each iteration must launch
+   steps) on ground truth from fast_rollout over bench_all's hill, 50 Adam
+   iterations (bench_all.py runs 100; cut to keep the script within half
+   its time limit).  The loss must drop 10x; each iteration must launch
    fk_interp and its backward kernel 101 times each; the first three
    losses must agree with the same fit through the plain versions.  Prints
    seconds per iteration and the card's busy share.
@@ -58,7 +59,30 @@ Phases (any failure exits non-zero before the last line is printed):
    ranges, and the plan's costs are finite.  Prints the share of frustum
    points the splat keeps, ms per tick (encoder and plan apart) and the
    card's busy share from one profiled tick.
-6. one JSON line listing every kernel with its launches on the main path,
+6. exact engine -- the reference engine's 13 golden cases
+   (tests/golden/*.npz, each 4 x 500 steps on a 128 x 128 grid) through the
+   port's exact engine on the card: the 9 semi-implicit ones through
+   ``rollout``, the 4 odeint ones through ``rollout_odeint``, and the 9
+   semi-implicit ones through ``fast_rollout`` (fk_interp 501 launches
+   each), at tests/test_golden.py's gates.  Prints each case's RMSEs and
+   the ms of its 4 x 500 rollout, and the card's busy share of one.
+7. train step -- the ``Trainer`` at bench_all.py:193-243's full width: the
+   default ``LSSConfig`` (4 x 256 x 416, B0, D=59, camC 64, 128 x 128 at
+   0.1 m), tradr at 0.4 m (pool 4), B=24, 100 control steps (remat
+   segments of 10), 50 ground-truth poses, lr 1e-3, seeded weights and
+   bench_all's seeded batch.  One warm-up step and 5 timed steps: every
+   loss and parameter finite, the parameters and BN statistics moved.
+   Prints the median ms per step, the peak memory, and from profiled
+   calls the card's busy time of a step, of its encoder part (a step
+   without the physics term) and of its physics part (the rollout's
+   forward and backward on the step's terrain).  Against the CPU: one
+   step at B=2 from the same weights and batch slice (no drop-connect,
+   TF32 off) on both, losses, gradients and parameters held; the
+   ``Evaluator`` on a B=24 batch (finite) and at B=2 against the CPU; and
+   ``fit_terrain``'s exact branch for marv at bench_all's fit shape
+   (16 x 100, the 128 x 128 hill, 20 iterations): the loss falls and its
+   first three losses agree with the same fit on the CPU.
+8. one JSON line listing every kernel with its launches on the main path,
    its largest difference from the plain version, its time, the plain
    version's time and its bound on this card.
 
@@ -68,11 +92,15 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
+import glob
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -83,12 +111,18 @@ from monoforce_tpu_torch.models.terrain_encoder.geometry import get_geometry
 from monoforce_tpu_torch.ops import _build, fk_step_cuda, interp_cuda
 from monoforce_tpu_torch.physics import fast
 from monoforce_tpu_torch.physics.controls import shooting_controls
-from monoforce_tpu_torch.physics.engine import RobotModel
+from monoforce_tpu_torch.losses import physics_loss
+from monoforce_tpu_torch.physics.engine import (RobotModel, rollout,
+                                                rollout_odeint)
 from monoforce_tpu_torch.pipeline import MonoForce
 from monoforce_tpu_torch.planner.shooting import (Planner, PlanResult,
                                                   _plan, force_variance_cost,
                                                   inclination_cost)
-from monoforce_tpu_torch.training import fit_terrain
+from monoforce_tpu_torch.training import Evaluator, Trainer, fit_terrain
+from monoforce_tpu_torch.models.terrain_encoder.lss import float32_math
+from monoforce_tpu_torch.training.trainer import (_physics_states,
+                                                  compute_losses,
+                                                  make_train_step)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM rate and
 # float32 rate outside the tensor cores
@@ -188,6 +222,38 @@ TICK_CPU_ATOL = 2e-4
 TICK_HALF_GATE = {"terrain": 0.02, "geom": 0.02, "friction": 0.05}
 TICK_SEED = 1        # init_params; with the noise seed below every head
 TICK_NOISE_SEED = 3  # carries signal (a ReLU head can be zero everywhere)
+REPO = os.path.dirname(os.path.abspath(__file__))
+# the golden gates of tests/test_golden.py:32-36 (position, rotation
+# entries, velocity RMSE; forces at the stride relative to the peak)
+GOLDEN_DIR = os.path.join(REPO, "tests", "golden")
+GOLDEN_GATES = {"x": 1e-3, "R": 5e-3, "xd": 2e-2, "F_spring": 0.05,
+                "F_friction": 0.05}
+# the train step against the CPU: losses; the encoder's
+# clipped gradients, each tensor within TRAIN_GRAD_RTOL of its largest
+# entry plus TRAIN_GRAD_FLOOR of the largest entry of all (float32
+# gradients through the trunk's ~50 train-mode BNs: two CPU thread counts
+# already part by up to 7e-4 of a tensor's largest entry at the card
+# test's size; the trunk's BN biases have an exactly-zero gradient, whose
+# rounding noise reaches 2e-7 of the largest entry); Adam's first step
+# moves an entry by lr g / (|g| + eps): where |g| > 1e-5 and ten times the
+# two devices' gradient difference (the sign sure) the steps agree within
+# TRAIN_PARAM_ATOL, elsewhere they lie within 2 lr; the physics gradient in
+# smooth maps within MAPS_GRAD_RTOL of its largest entry; the evaluator's
+# metrics
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-2
+TRAIN_GRAD_FLOOR = 1e-5
+TRAIN_PARAM_ATOL = 1e-6
+MAPS_GRAD_RTOL = 1e-3
+EVAL_RTOL = 1e-4
+# the exact-branch fit: its first three losses on the card against the CPU
+# (as phase 4's kernels against the plain versions)
+EXACT_FIT_RTOL = 1e-3
+TRAIN_SEED = 0
+# bench_all.py:193-243's batch and the timed steps after one warm-up; the
+# exact-branch fit's trajectories, steps and iterations (bench_all.py:101-132)
+TRAIN_B, TRAIN_STEPS = 24, 5
+EXACT_FIT = (16, 100, 20)
 
 
 def _say(*parts):
@@ -731,14 +797,15 @@ def run_main_path(dev, launches):
 
 def run_fit(dev, launches):
     """Phase 4: fit_terrain at bench_all.py's shape (bench_all.py:101-132):
-    tradr (P=97), the 128 x 128 grid, 16 trajectories x 100 steps, 100
-    iterations, ground truth from fast_rollout on bench_all's hill."""
+    tradr (P=97), the 128 x 128 grid, 16 trajectories x 100 steps, 50
+    iterations (bench_all's 100, halved), ground truth from fast_rollout on
+    bench_all's hill."""
     cfg = PhysicsConfig(robot="tradr")
     robot = RobotModel.from_config(cfg, device=dev)
     gx, gy = cfg.grid_coords()
     z_gt = torch.from_numpy((0.3 * np.exp(-((gx - 1.5) ** 2 + gy ** 2) / 2.0))
                             .astype(np.float32)).to(dev)
-    B, N, iters = 16, 100, 100
+    B, N, iters = 16, 100, 50
     rng = np.random.default_rng(0)
     controls = torch.from_numpy(rng.uniform(-1, 1, (B, N, 2)).astype(
         np.float32)).to(dev)
@@ -939,6 +1006,463 @@ def run_online_tick(dev, launches, card):
     return ok and good
 
 
+def golden_case(name, dev):
+    """(npz data, robot, (B, H, W) grid, controls, joint angles or None,
+    friction or None) of a golden case on ``dev``, with the exact contact
+    cloud the reference ran with."""
+    d = np.load(os.path.join(GOLDEN_DIR, name + ".npz"))
+    cfg = PhysicsConfig(robot=str(d["robot"]), robot_points=d["robot_points"])
+    robot = RobotModel.from_config(cfg, device=dev)
+    B = d["controls"].shape[0]
+
+    def batch(a):
+        return torch.from_numpy(np.broadcast_to(a, (B,) + a.shape).copy()).to(
+            dev)
+
+    return (d, robot, batch(d["z_grid"]),
+            torch.from_numpy(d["controls"]).to(dev),
+            torch.from_numpy(d["joint_angles"]).to(dev)
+            if d["joint_angles"].size else None,
+            batch(d["friction"]) if d["friction"].size else None)
+
+
+def golden_errors(d, states, forces=None) -> dict:
+    """A rollout's RMSEs against its golden case."""
+    def rmse(a, b):
+        return float(np.sqrt(np.mean((a.cpu().double().numpy() - b) ** 2)))
+
+    err = {"x": rmse(states.x, d["Xs"]), "R": rmse(states.R, d["Rs"]),
+           "xd": rmse(states.xd, d["Xds"])}
+    if forces is not None:
+        k = int(d["force_stride"])
+        peak = float(np.abs(d["F_spring"]).max()) + 1e-6
+        err["F_spring"] = rmse(forces[0][:, ::k], d["F_spring"]) / peak
+        err["F_friction"] = rmse(forces[1][:, ::k], d["F_friction"]) / peak
+    return err
+
+
+def run_exact_engine(dev, launches, card):
+    """Phase 6: the 13 golden cases through the exact engine on the card,
+    and the 9 semi-implicit ones through fast_rollout."""
+    ok = True
+    names = sorted(os.path.basename(p)[:-4]
+                   for p in glob.glob(os.path.join(GOLDEN_DIR, "*.npz")))
+    ok &= len(names) == 13
+    for name in names:
+        d, robot, z, ctr, ja, fr = golden_case(name, dev)
+        odeint = "odeint" in name
+        dt = 5.0 / (ctr.shape[1] - 1)
+
+        def run():
+            if odeint:
+                return rollout_odeint(robot, z, ctr, joint_angles=ja,
+                                      friction=fr, dt=dt)
+            return rollout(robot, z, ctr, joint_angles=ja, friction=fr)[:2]
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states, forces = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        err = golden_errors(d, states, forces)
+        good = all(v < GOLDEN_GATES[k] for k, v in err.items())
+        text = (f"golden {name} ({'rollout_odeint' if odeint else 'rollout'}, "
+                f"{tuple(ctr.shape[:2])}): RMSE "
+                + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+                + f" {'ok' if good else 'FAILED'}; {ms:.1f} ms")
+        if not odeint:
+            for w in WRAPPERS.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fstates, _ = fast.fast_rollout(robot, z, ctr, joint_angles=ja,
+                                           friction=fr)
+            torch.cuda.synchronize()
+            fms = (time.perf_counter() - t0) * 1e3
+            counts = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
+            for n, v in counts.items():
+                launches[n] = launches.get(n, 0) + v
+            ferr = golden_errors(d, fstates)
+            fgood = (all(v < GOLDEN_GATES[k] for k, v in ferr.items())
+                     and counts == {"fk_interp": ctr.shape[1] + 1})
+            text += ("; fast_rollout RMSE "
+                     + ", ".join(f"{k} {v:.3e}" for k, v in ferr.items())
+                     + f", launches {counts} {'ok' if fgood else 'FAILED'}; "
+                     f"{fms:.1f} ms")
+            good &= fgood
+        _say(text)
+        ok &= good
+    d, robot, z, ctr, ja, fr = golden_case("tradr_hill", dev)
+    busy, _, _, prof_wall = device_busy(
+        lambda: rollout(robot, z, ctr, friction=fr), "")
+    one = wall_ms(lambda: rollout(robot, z, ctr, friction=fr), reps=3)
+    _say(f"golden timing: rollout tradr_hill 4 x 500 {one:.1f} ms (median of "
+         f"3); one profiled call: card busy {busy:.3f} ms, "
+         f"{100 * busy / one:.1f}% of the unprofiled {one:.1f} ms "
+         f"({100 * busy / prof_wall:.1f}% of the profiled {prof_wall:.1f} ms) "
+         f"[{card}]")
+    return ok
+
+
+def bench_all_batch(B, lss, dphys, dev):
+    """bench_all.py:135-156 and :210-225's seeded batch: four cameras with
+    identity rotations at the origin, focal 400 px, seeded images; seeded
+    (height, mask) labels on the 128 x 128 grid, 100 uniform controls over
+    100 dt, identity initial poses, 50 seeded ground-truth positions."""
+    h, w = lss.data_aug_conf["final_dim"]
+    rng = np.random.default_rng(0)
+    imgs = rng.normal(size=(B, 4, 3, h, w)).astype(np.float32)
+    K = np.array([[400.0, 0, w / 2], [0, 400.0, h / 2], [0, 0, 1.0]])
+    eye3 = np.broadcast_to(np.eye(3), (B, 4, 3, 3))
+    rng = np.random.default_rng(1)
+    G, n_ctrl, n_traj = 128, 100, 50
+    t_sim = n_ctrl * float(dphys.dt)
+    batch = (imgs, eye3, np.zeros((B, 4, 3)),
+             np.broadcast_to(K, (B, 4, 3, 3)), eye3, np.zeros((B, 4, 3)),
+             rng.normal(size=(B, 2, G, G)).astype(np.float32),
+             rng.normal(size=(B, 2, G, G)).astype(np.float32),
+             np.tile(np.linspace(0, t_sim, n_ctrl, dtype=np.float32)[None],
+                     (B, 1)),
+             rng.uniform(-1, 1, (B, n_ctrl, 2)).astype(np.float32),
+             np.broadcast_to(np.eye(4), (B, 4, 4)),
+             np.tile(np.linspace(0, t_sim, n_traj, dtype=np.float32)[None],
+                     (B, 1)),
+             rng.normal(size=(B, n_traj, 3)).astype(np.float32),
+             np.zeros((B, n_traj, 3)), np.broadcast_to(np.eye(3),
+                                                       (B, n_traj, 3, 3)),
+             np.zeros((B, n_traj, 3)))
+    return tuple(torch.as_tensor(np.ascontiguousarray(a),
+                                 dtype=torch.float32).to(dev) for a in batch)
+
+
+def _finite_model(model) -> bool:
+    return all(bool(torch.isfinite(v).all())
+               for v in model.state_dict().values() if v.is_floating_point())
+
+
+class FixedMaps(torch.nn.Module):
+    """A stand-in for the encoder that returns given terrain maps, so that
+    the losses and the evaluator's rollout run on another device's maps."""
+
+    def __init__(self, maps):
+        super().__init__()
+        self.maps = maps
+
+    def forward(self, *args, **kwargs):
+        return self.maps
+
+
+def rel(a: dict, b: dict) -> float:
+    return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in b)
+
+
+def _grad_bounds(gb: dict) -> dict:
+    """Each gradient tensor's tolerance: TRAIN_GRAD_RTOL of its largest
+    entry plus TRAIN_GRAD_FLOOR of the largest entry of all."""
+    top = max(float(g.abs().max()) for g in gb.values())
+    return {k: TRAIN_GRAD_RTOL * float(g.abs().max()) + TRAIN_GRAD_FLOOR * top
+            for k, g in gb.items()}
+
+
+def _grad_diff(ga: dict, gb: dict, bounds: dict):
+    """Largest difference of two gradient sets over its tensor's bound (the
+    check passes at 1 or below), and that tensor's name."""
+    return max((float((ga[k] - g).abs().max()) / bounds[k], k)
+               for k, g in gb.items())
+
+
+def _map_grad_diff(ga: dict, gb: dict) -> float:
+    """Largest difference of two gradients in the maps over each map's
+    largest entry."""
+    return max(float((ga[k] - g).abs().max()) / max(float(g.abs().max()),
+                                                    1e-30)
+               for k, g in gb.items())
+
+
+def _maps_losses(maps, robot, batch, pool_k):
+    """The train step's three losses on given maps, and their gradient in
+    the maps."""
+    maps = {k: v.clone().requires_grad_() for k, v in maps.items()}
+    with float32_math():
+        total, aux = compute_losses(FixedMaps(maps), robot, batch, True,
+                                    pool_k=pool_k)
+        total.backward()
+    return ({k: float(v.detach()) for k, v in aux.items()},
+            {k: v.grad.cpu() for k, v in maps.items() if v.grad is not None})
+
+
+def smooth_maps(B, lss, dev):
+    """Smooth terrain maps at the encoder's grid: bench_all.py's fit hill
+    as geom and terrain, bench.py's friction grid."""
+    cfg = PhysicsConfig(grid_res=lss.grid_conf["xbound"][2])
+    gx, gy = cfg.grid_coords()
+    hill = 0.3 * np.exp(-((gx - 1.5) ** 2 + gy ** 2) / 2.0)
+    fr = 0.7 + 0.25 * np.sin(1.3 * gx) * np.cos(0.9 * gy)
+    return {k: torch.from_numpy(np.broadcast_to(
+        a, (B, 1) + a.shape).astype(np.float32).copy()).to(dev)
+        for k, a in (("geom", hill), ("terrain", hill), ("friction", fr))}
+
+
+def compare_train_step(dev, lss, dphys, batch, log_dir):
+    """The train step at B=2 from the same seeded weights and batch, no
+    drop-connect, on the card and on the CPU.  Returns (ok, text).
+
+    Its physics term is chaotic on the seeded encoder's rough maps: 100
+    steps of contact dynamics turn the rounding by which the two devices
+    differ into a different loss, even on identical maps, and into
+    unrelated gradients.  So the physics is held where it is well
+    conditioned: the step's physics path (pooling, the rollout with remat
+    and the BPTT clip, the loss, its gradient in the maps) on smooth maps
+    at the step's shapes; the numbers on the encoder's maps are printed
+    beside the CPU's own change when its maps move by 1e-7, and not gated.
+    Also checked: the encoder's two losses of the whole step; the
+    encoder's step alone (no physics term): its losses, clipped gradients,
+    updated parameters and BN statistics; on the seeded weights, the
+    evaluator's heightmap metrics, and all four metrics on the smooth
+    maps."""
+    runs = []
+    for i, d in enumerate((dev, torch.device("cpu"))):
+        b = tuple(t.to(d) for t in batch)
+        tr = Trainer(dphys, lss, lr=1e-3, log_dir=os.path.join(log_dir, str(i)),
+                     device=d, drop_connect_rate=0.0)
+        tr.init_state(seed=TRAIN_SEED)
+        with torch.no_grad(), float32_math():
+            maps = copy.deepcopy(tr.model).train()(*b[:6])
+        aux = {k: float(v) for k, v in tr.train_step(b, tr.generator).items()}
+        enc = Trainer(dphys, lss, lr=1e-3, log_dir=os.path.join(log_dir, str(i)),
+                      device=d, drop_connect_rate=0.0)
+        enc.init_state(seed=TRAIN_SEED)
+        # the evaluator on the seeded weights (after a full step, the
+        # physics gradient's amplified rounding parts the devices' weights)
+        ev = Evaluator(enc.model, enc.robot, pool_k=enc.pool_k,
+                       out_dir=os.path.join(log_dir, str(i)))
+        metrics = ev._metrics(b)[0]
+        smooth = smooth_maps(b[0].shape[0], lss, d)
+        ev_smooth = Evaluator(FixedMaps(smooth), enc.robot, pool_k=enc.pool_k,
+                              out_dir=os.path.join(log_dir, str(i)))
+        enc_step, _ = make_train_step(enc.model, enc.robot, enc.optimizer,
+                                      phys_weight=0.0, pool_k=enc.pool_k)
+        enc_aux = {k: float(v) for k, v in enc_step(b, enc.generator).items()}
+        maps = {k: maps[k] for k in ("geom", "terrain", "friction")}
+        runs.append(dict(
+            aux=aux, enc_aux=enc_aux,
+            metrics={k: float(v) for k, v in metrics.items()},
+            smooth=_maps_losses(smooth, tr.robot, b, tr.pool_k),
+            smooth_metrics={k: float(v) for k, v in
+                            ev_smooth._metrics(b)[0].items()},
+            own=_maps_losses(maps, tr.robot, b, tr.pool_k),
+            card_maps=(maps if i == 0 else None),
+            cpu_args=(tr.robot, b, tr.pool_k, maps) if i else None,
+            state={k: v.cpu() for k, v in enc.model.state_dict().items()},
+            grads={k: p.grad.cpu() for k, p in enc.model.named_parameters()
+                   if p.grad is not None}))
+        del tr, enc, ev, ev_smooth
+    card, cpu = runs
+    robot, b, pool_k, cpu_maps = cpu["cpu_args"]
+    # on the encoder's maps (not gated): the card's maps on the CPU, and
+    # the CPU's own maps moved by 1e-7 of each entry
+    on_card = _maps_losses({k: v.cpu() for k, v in card["card_maps"].items()},
+                           robot, b, pool_k)
+    gen = torch.Generator().manual_seed(0)
+    moved = _maps_losses({k: v * (1 + 1e-7 * torch.randn(v.shape,
+                                                          generator=gen))
+                          for k, v in cpu_maps.items()}, robot, b, pool_k)
+    chaos = {"card maps, card against CPU": (rel(card["own"][0], on_card[0]),
+                                             _map_grad_diff(card["own"][1],
+                                                            on_card[1])),
+             "CPU maps moved by 1e-7, CPU against itself": (
+                 rel(moved[0], cpu["own"][0]),
+                 _map_grad_diff(moved[1], cpu["own"][1])),
+             "each device's own maps": (rel(card["own"][0], cpu["own"][0]),
+                                        _map_grad_diff(card["own"][1],
+                                                       cpu["own"][1]))}
+    enc_losses = {k: cpu["aux"][k] for k in ("geom", "terrain")}
+    hm = {k: cpu["metrics"][k] for k in ("hm_geom", "hm_terrain")}
+    stat_rel = max(float(((card["state"][k] - v).abs() / (1 + v.abs())).max())
+                   for k, v in cpu["state"].items() if "running" in k)
+    bounds = _grad_bounds(cpu["grads"])
+    resolved = unresolved = 0.0
+    n_resolved = n_all = 0
+    for k, g in cpu["grads"].items():
+        diff = (card["state"][k] - cpu["state"][k]).abs()
+        sure = (g.abs() > 1e-5) & (g.abs() > 10 * (card["grads"][k] - g).abs())
+        resolved = max(resolved, float(diff[sure].max()) if sure.any() else 0.0)
+        unresolved = max(unresolved, float(diff.max()))
+        n_resolved += int(sure.sum())
+        n_all += g.numel()
+    worst_ratio, worst = _grad_diff(card["grads"], cpu["grads"], bounds)
+    checks = {
+        "step's encoder losses": (rel(card["aux"], enc_losses),
+                                  TRAIN_LOSS_RTOL),
+        "physics losses on smooth maps": (rel(card["smooth"][0],
+                                              cpu["smooth"][0]),
+                                          TRAIN_LOSS_RTOL),
+        "their gradient in the maps": (_map_grad_diff(card["smooth"][1],
+                                                      cpu["smooth"][1]),
+                                       MAPS_GRAD_RTOL),
+        "encoder step's losses": (rel(card["enc_aux"], cpu["enc_aux"]),
+                                  TRAIN_LOSS_RTOL),
+        f"its clipped gradients over their bounds (worst {worst})": (
+            worst_ratio, 1.0),
+        "its BN statistics": (stat_rel, 1e-5),
+        f"its parameters where the sign is sure ({n_resolved} of {n_all})": (
+            resolved, TRAIN_PARAM_ATOL),
+        "its parameters elsewhere": (unresolved, 2e-3 + TRAIN_PARAM_ATOL),
+        "evaluator's heightmap metrics": (rel(card["metrics"], hm), EVAL_RTOL),
+        "evaluator on smooth maps": (rel(card["smooth_metrics"],
+                                         cpu["smooth_metrics"]), EVAL_RTOL),
+    }
+    ok = all(v <= tol for v, tol in checks.values())
+    return ok, (f"step losses {card['aux']} (cpu {cpu['aux']}); the "
+                "encoder's maps, losses' and gradient's rel diff (not gated): "
+                + "; ".join(f"{n} {a:.2e} and {g:.2e}"
+                            for n, (a, g) in chaos.items())
+                + "; gated: "
+                + "; ".join(f"{n} {v:.2e} (tol {t:g})"
+                            for n, (v, t) in checks.items())
+                + f" {'ok' if ok else 'MISMATCH'}")
+
+
+def run_exact_fit(dev):
+    """fit_terrain's exact branch: marv at bench_all.py:101-132's shape
+    (16 x 100, the 128 x 128 hill), ground truth from the port's exact
+    rollout, 20 iterations on the card, 3 on the CPU."""
+    B, N, iters = EXACT_FIT
+    cfg = PhysicsConfig(robot="marv")
+    robot = RobotModel.from_config(cfg, device=dev)
+    gx, gy = cfg.grid_coords()
+    z_gt = (0.3 * np.exp(-((gx - 1.5) ** 2 + gy ** 2) / 2.0)).astype(np.float32)
+    controls = np.random.default_rng(0).uniform(-1, 1, (B, N, 2)).astype(
+        np.float32)
+    gt, _, _ = rollout(robot, torch.from_numpy(z_gt).to(dev).expand(B, -1, -1),
+                       torch.from_numpy(controls).to(dev), return_forces=False)
+    gt = gt.x.cpu().numpy()
+    ts = np.tile(np.arange(N, dtype=np.float32) * cfg.dt, (B, 1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, losses = fit_terrain(cfg, controls, [gt], ts, ts, n_iters=iters,
+                            device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    _, cpu = fit_terrain(cfg, controls, [gt], ts, ts, n_iters=3, device="cpu")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[:3], cpu))
+    ok = (all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and rel <= EXACT_FIT_RTOL)
+    return ok, (f"exact fit marv P={robot.points.shape[0]} B={B} N={N} x "
+                f"{iters} iterations: loss {losses[0]:.6g} -> {losses[-1]:.6g} "
+                f"({losses[0] / max(losses[-1], 1e-30):.2f}x); first 3 "
+                f"against the CPU: rel diff {rel:.2e} (tol {EXACT_FIT_RTOL:g}); "
+                f"{secs:.2f} s, {secs / iters:.3f} s per iteration "
+                f"{'ok' if ok else 'FAILED'}")
+
+
+def run_train_step(dev, launches, card):
+    """Phase 7: the Trainer's full-width step (bench_all.py:193-243), the
+    card against the CPU, the Evaluator and the exact-branch fit."""
+    lss = LSSConfig()
+    dphys = PhysicsConfig(robot="tradr", grid_res=0.4)
+    B, steps = TRAIN_B, TRAIN_STEPS
+    ok = True
+    # the trainers' log directories, inside the checkout, removed on leaving
+    os.makedirs(os.path.join(REPO, "runs"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "runs")) as tmp:
+        tr = Trainer(dphys, lss, lr=1e-3, log_dir=os.path.join(tmp, "train"),
+                     device=dev)
+        tr.init_state(seed=TRAIN_SEED)
+        batch = bench_all_batch(B, lss, dphys, dev)
+        before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        for w in WRAPPERS.values():
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        aux = [tr.train_step(batch, tr.generator)]      # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            aux.append(tr.train_step(batch, tr.generator))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        counts = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
+        losses = [{k: float(v) for k, v in a.items()} for a in aux]
+        after = tr.model.state_dict()
+        finite = (all(np.isfinite(list(a.values())).all() for a in losses)
+                  and _finite_model(tr.model))
+        moved_p = sum(not torch.equal(before[n], p.detach())
+                      for n, p in tr.model.named_parameters())
+        moved_bn = sum(not torch.equal(before[k], v) for k, v in after.items()
+                       if "running" in k)
+        n_p = len(list(tr.model.parameters()))
+        n_bn = sum("running" in k for k in after)
+        good = (finite and moved_p > 0.9 * n_p and moved_bn == n_bn
+                and not counts)
+        ms = statistics.median(times)
+        _say(f"train step B={B} (4 x {lss.data_aug_conf['final_dim']}, "
+             f"tradr 0.4 m, 100 steps): losses "
+             + " -> ".join(f"{a['total']:.5g}" for a in losses)
+             + f" (geom {losses[-1]['geom']:.5g}, terrain "
+             f"{losses[-1]['terrain']:.5g}, phys {losses[-1]['phys']:.5g}); "
+             f"finite {finite}; {moved_p} of {n_p} parameters and {moved_bn} "
+             f"of {n_bn} BN statistics moved; kernels launched {counts}; "
+             f"{ms:.1f} ms per step (median of {steps}: "
+             + ", ".join(f"{t:.1f}" for t in times)
+             + f"); peak memory {peak:.2f} GiB {'ok' if good else 'FAILED'}")
+        ok &= good
+
+        # one profiled step, and its two parts apart: the encoder (a step
+        # without the physics term) and the physics (the rollout's forward
+        # and backward on this step's terrain)
+        enc_step, _ = make_train_step(tr.model, tr.robot, tr.optimizer,
+                                      phys_weight=0.0, pool_k=tr.pool_k)
+        with torch.no_grad():
+            tr.model.eval()
+            terrain = {k: v.detach() for k, v in tr.model(*batch[:6]).items()}
+
+        def physics():
+            t = {k: v.clone().requires_grad_() for k, v in terrain.items()
+                 if k in ("terrain", "friction")}
+            st = _physics_states(tr.robot, t, batch[10], batch[9], tr.pool_k)
+            physics_loss([st.x], [batch[12]], batch[8], batch[11]).backward()
+
+        parts = {"step": lambda: tr.train_step(batch, tr.generator),
+                 "encoder": lambda: enc_step(batch, tr.generator),
+                 "physics": physics}
+        prof = {}
+        for name, fn in parts.items():
+            wall = wall_ms(fn, reps=3)
+            busy, _, _, prof_wall = device_busy(fn, "")
+            prof[name] = (wall, busy, prof_wall)
+        _say("train step parts (median of 3 synchronised calls; card busy in "
+             "one profiled call): "
+             + "; ".join(f"{n} {w:.1f} ms, card busy {b:.1f} ms "
+                         f"({100 * b / w:.1f}% of it, {100 * b / pw:.1f}% of "
+                         f"the profiled {pw:.1f} ms)"
+                         for n, (w, b, pw) in prof.items())
+             + f" [{card}]")
+
+        # the evaluator at B=24 on the trained weights
+        ev = Evaluator(tr.model, tr.robot, pool_k=tr.pool_k,
+                       out_dir=os.path.join(tmp, "eval"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in ev._metrics(batch)[0].items()}
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        good = all(np.isfinite(v) for v in metrics.values())
+        _say(f"evaluator B={B}: {metrics} finite {good}; {eval_ms:.1f} ms")
+        ok &= good
+        del tr, ev, enc_step, terrain, batch
+        torch.cuda.empty_cache()
+
+        good, text = compare_train_step(
+            dev, lss, dphys, bench_all_batch(2, lss, dphys, "cpu"), tmp)
+        _say(f"train step B=2 card against CPU: {text} [{card}]")
+        ok &= good
+    good, text = run_exact_fit(dev)
+    _say(f"fit {text} [{card}]")
+    return ok & good
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -964,7 +1488,11 @@ def main() -> int:
                       ("main path", lambda: run_main_path(dev, launches)),
                       ("training", lambda: run_fit(dev, launches)),
                       ("online tick",
-                       lambda: run_online_tick(dev, launches, card))):
+                       lambda: run_online_tick(dev, launches, card)),
+                      ("exact engine",
+                       lambda: run_exact_engine(dev, launches, card)),
+                      ("train step",
+                       lambda: run_train_step(dev, launches, card))):
         t1 = time.perf_counter()
         good = fn()
         _say(f"phase {phase}: {'ok' if good else 'FAILED'} in "

@@ -14,13 +14,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from monoforce_tpu_torch.models.terrain_encoder.layers import (
-    BN_MOMENTUM, ScaledTanh, Up, UpsampleAlignCorners)
+    BN_MOMENTUM, BatchNorm2d, ScaledTanh, Up, UpsampleAlignCorners)
 
 __all__ = ["BevEncode", "BasicBlock"]
 
 
-def _bn(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, momentum=BN_MOMENTUM)
+def _bn(ch: int) -> BatchNorm2d:
+    return BatchNorm2d(ch, momentum=BN_MOMENTUM)
 
 
 class BasicBlock(nn.Module):

@@ -13,13 +13,13 @@ static-padding convs do.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from monoforce_tpu_torch.models.terrain_encoder.layers import (
-    BN_MOMENTUM, Conv2dSame, swish)
+    BN_MOMENTUM, BatchNorm2d, Conv2dSame, swish)
 
 __all__ = ["EfficientNetB0", "MBConv", "B0_STAGES"]
 
@@ -36,12 +36,11 @@ B0_STAGES: Sequence[Tuple[int, int, int, int, int]] = (
 
 _BN_EPS = 1e-3
 _SE_RATIO = 0.25
-_DROP_CONNECT_RATE = 0.2
 _STEM_CH = 32
 
 
-def _bn(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=_BN_EPS, momentum=BN_MOMENTUM)
+def _bn(ch: int) -> BatchNorm2d:
+    return BatchNorm2d(ch, eps=_BN_EPS, momentum=BN_MOMENTUM)
 
 
 class MBConv(nn.Module):
@@ -65,7 +64,7 @@ class MBConv(nn.Module):
         self._project_conv = nn.Conv2d(mid, out_ch, 1, bias=False)
         self._bn2 = _bn(out_ch)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         h = x
         if self.expand != 1:
             h = swish(self._bn0(self._expand_conv(h)))
@@ -79,10 +78,16 @@ class MBConv(nn.Module):
             if self.training and self.drop_rate > 0:
                 # stochastic depth: drop the whole branch per sample,
                 # rescaled by 1/keep like the reference
+                if generator is None:
+                    raise ValueError(
+                        "a train-mode forward with drop-connect draws its "
+                        "masks from an explicit torch.Generator: pass "
+                        "generator=, or build the model with "
+                        "drop_connect_rate=0")
                 keep = 1.0 - self.drop_rate
                 mask = torch.bernoulli(torch.full(
                     (h.shape[0], 1, 1, 1), keep, dtype=h.dtype,
-                    device=h.device))
+                    device=h.device), generator=generator)
                 h = h * mask / keep
             h = h + x
         return h
@@ -91,9 +96,11 @@ class MBConv(nn.Module):
 class EfficientNetB0(nn.Module):
     """B0 trunk returning its endpoints: ``reduction_i`` is the feature map
     just before the i-th spatial reduction, the last one the trunk's
-    output (``reduction_4``: /16, 112 ch; ``reduction_5``: /32, 320 ch)."""
+    output (``reduction_4``: /16, 112 ch; ``reduction_5``: /32, 320 ch).
+    Block i drops its residual branch at rate ``drop_connect_rate * i / 16``
+    in train mode."""
 
-    def __init__(self):
+    def __init__(self, drop_connect_rate: float = 0.2):
         super().__init__()
         self._conv_stem = Conv2dSame(3, _STEM_CH, 3, stride=2, bias=False)
         self._bn0 = _bn(_STEM_CH)
@@ -104,17 +111,17 @@ class EfficientNetB0(nn.Module):
             for r in range(repeats):
                 blocks.append(MBConv(in_ch, out_ch, k, stride if r == 0 else 1,
                                      expand,
-                                     drop_rate=_DROP_CONNECT_RATE * idx / total))
+                                     drop_rate=drop_connect_rate * idx / total))
                 in_ch = out_ch
                 idx += 1
         self._blocks = nn.ModuleList(blocks)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         h = swish(self._bn0(self._conv_stem(x)))
         endpoints = {}
         prev = h
         for block in self._blocks:
-            h = block(h)
+            h = block(h, generator)
             if prev.shape[2] > h.shape[2]:
                 endpoints[f"reduction_{len(endpoints) + 1}"] = prev
             prev = h

@@ -15,10 +15,31 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 __all__ = ["ScaledTanh", "Up", "conv_bn_act", "upsample_align_corners",
-           "swish", "Conv2dSame", "UpsampleAlignCorners", "BN_MOMENTUM"]
+           "swish", "Conv2dSame", "UpsampleAlignCorners", "BatchNorm2d",
+           "BN_MOMENTUM"]
 
 # flax's BatchNorm momentum 0.99 is torch's 0.01 (the weight of the batch)
 BN_MOMENTUM = 0.01
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode running statistics follow flax's
+    update: ``ra = 0.99 ra + 0.01 batch``, with the *biased* batch variance
+    (torch's own update takes the unbiased one, n/(n-1) larger).  The
+    normalization, inference and the ``state_dict`` names are torch's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(keep).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        # normalized by the biased batch statistics, as in torch and flax
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
 
 
 def swish(x):
@@ -78,7 +99,7 @@ def conv_bn_act(in_ch: int, out_ch: int):
     blocks, lss.py:39-41,118), which the JAX package pins as
     ``gelu_exact``."""
     return [nn.Conv2d(in_ch, out_ch, 3, padding=1, bias=False),
-            nn.BatchNorm2d(out_ch, momentum=BN_MOMENTUM),
+            BatchNorm2d(out_ch, momentum=BN_MOMENTUM),
             nn.GELU()]
 
 

@@ -21,7 +21,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -74,16 +74,17 @@ def half_inference_model(model: "LiftSplatShoot") -> "LiftSplatShoot":
 class CamEncode(nn.Module):
     """Per-camera feature + depth-distribution encoder (lss.py:49-99)."""
 
-    def __init__(self, D: int, C: int):
+    def __init__(self, D: int, C: int, drop_connect_rate: float = 0.2):
         super().__init__()
         self.D, self.C = D, C
-        self.trunk = EfficientNetB0()
+        self.trunk = EfficientNetB0(drop_connect_rate)
         self.up1 = Up(320 + 112, 512)
         self.depthnet = nn.Conv2d(512, D + C, 1)
 
-    def forward(self, x):
-        """x: (B*, 3, H, W) -> (B*, D, fH, fW, C) lifted features."""
-        endpoints = self.trunk(x)
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """x: (B*, 3, H, W) -> (B*, D, fH, fW, C) lifted features;
+        ``generator`` draws the trunk's drop-connect masks in train mode."""
+        endpoints = self.trunk(x, generator)
         h = self.up1(endpoints["reduction_5"], endpoints["reduction_4"])
         h = self.depthnet(h)
         depth = h[:, :self.D].softmax(dim=1)              # (B*, D, fH, fW)
@@ -92,10 +93,13 @@ class CamEncode(nn.Module):
 
 
 class LiftSplatShoot(nn.Module):
-    """grid_conf/data_aug_conf-driven LSS encoder with three terrain heads."""
+    """grid_conf/data_aug_conf-driven LSS encoder with three terrain heads.
+    ``drop_connect_rate`` is the B0 trunk's (the JAX ``EfficientNetB0``
+    field); it acts in train mode only."""
 
     def __init__(self, grid_conf, data_aug_conf, outC: int = 1,
-                 camC: int = 64, downsample: int = 16):
+                 camC: int = 64, downsample: int = 16,
+                 drop_connect_rate: float = 0.2):
         super().__init__()
         self.grid_conf, self.data_aug_conf = grid_conf, data_aug_conf
         dx, bx, nx = gen_dx_bx(grid_conf["xbound"], grid_conf["ybound"],
@@ -109,7 +113,7 @@ class LiftSplatShoot(nn.Module):
             persistent=False)
         self.D = int(self.frustum.shape[0])
         self.camC = camC
-        self.camencode = CamEncode(self.D, camC)
+        self.camencode = CamEncode(self.D, camC, drop_connect_rate)
         self.bevencode = BevEncode(camC * int(nx[2]), outC)
 
     @torch.no_grad()
@@ -135,26 +139,32 @@ class LiftSplatShoot(nn.Module):
             if isinstance(m, BasicBlock):
                 m.bn2.weight.zero_()
 
-    def get_cam_feats(self, imgs):
+    def get_cam_feats(self, imgs, generator: Optional[torch.Generator] = None):
         """imgs: (B, N, 3, H, W) -> (B, N, D, fH, fW, C)."""
         B, N = imgs.shape[:2]
-        feats = self.camencode(imgs.reshape((B * N,) + imgs.shape[2:]))
+        feats = self.camencode(imgs.reshape((B * N,) + imgs.shape[2:]),
+                               generator)
         return feats.reshape((B, N) + feats.shape[1:])
 
-    def get_voxels(self, imgs, rots, trans, intrins, post_rots, post_trans):
+    def get_voxels(self, imgs, rots, trans, intrins, post_rots, post_trans,
+                   generator: Optional[torch.Generator] = None):
         geom = get_geometry(self.frustum, rots, trans, intrins, post_rots,
                             post_trans)
-        return voxel_pool(geom, self.get_cam_feats(imgs), self.dx, self.bx,
-                          self.nx)
+        return voxel_pool(geom, self.get_cam_feats(imgs, generator), self.dx,
+                          self.bx, self.nx)
 
-    def forward(self, imgs, rots, trans, intrins, post_rots,
-                post_trans) -> Dict[str, torch.Tensor]:
+    def forward(self, imgs, rots, trans, intrins, post_rots, post_trans,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         """Returns {'geom', 'terrain', 'diff', 'friction'}: (B, outC, X, Y).
         The images take the camera encoder's dtype; the calibrations are
-        float32."""
+        float32.  In train mode the trunk's drop-connect masks come from
+        ``generator`` (on the model's device), which must then be given
+        unless the model was built with ``drop_connect_rate=0``; BN updates
+        its running statistics as flax does."""
         with float32_math():
             bev = self.get_voxels(imgs, rots, trans, intrins, post_rots,
-                                  post_trans)
+                                  post_trans, generator)
             # torch does not promote inside a conv: the BEV input takes the
             # BEV encoder's dtype (float32 in the half mode too)
             return self.bevencode(bev.to(self.bevencode.conv1.weight.dtype))

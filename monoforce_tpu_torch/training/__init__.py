@@ -1,6 +1,6 @@
-"""Training of the PyTorch port: so far, terrain fitting through the
-differentiable rollout (``training/trainer.py`` of the JAX package comes
-with a later slice)."""
+"""Training of the PyTorch port: the terrain encoder's trainer and
+evaluator, and terrain fitting through the differentiable rollout.  The
+two ``make_optimizer``s keep their modules, as in the JAX package."""
 
 from monoforce_tpu_torch.training.fit_terrain import (
     TerrainParams,
@@ -8,6 +8,12 @@ from monoforce_tpu_torch.training.fit_terrain import (
     make_optimizer,
     terrain_fit_step,
 )
+from monoforce_tpu_torch.training.trainer import (
+    Trainer,
+    avg_pool_grid,
+    make_train_step,
+)
+from monoforce_tpu_torch.training.evaluator import Evaluator
 
-__all__ = ["TerrainParams", "fit_terrain", "make_optimizer",
-           "terrain_fit_step"]
+__all__ = ["fit_terrain", "terrain_fit_step", "Trainer", "make_train_step",
+           "avg_pool_grid", "Evaluator", "TerrainParams", "make_optimizer"]

@@ -8,9 +8,10 @@ for the heightmap (0.02) and friction (0.01), the trajectory MSE
 
 The gradient runs through :func:`~monoforce_tpu_torch.physics.fast.fast_rollout`,
 whose every terrain lookup is the ``fk_interp`` kernel forward and its
-backward kernel on the card.  The JAX package takes the exact engine
-instead for robots with flippers and for horizons of 256 steps or more (its
-remat segments); the port has no exact engine yet and raises there.
+backward kernel on the card.  Robots with flippers, and horizons of 256
+steps or more (remat segments), take the exact engine
+(:func:`~monoforce_tpu_torch.physics.engine.rollout`, plain PyTorch), as
+in the JAX package (``_loss_fn``, fit_terrain.py:49-72).
 
 PyTorch runs eagerly, so the JAX package's chunked programs become a loop
 of steps whose losses stay on the device and are read back once per
@@ -25,15 +26,11 @@ import torch
 
 from monoforce_tpu_torch.losses import physics_loss, total_variation
 from monoforce_tpu_torch.physics.engine import (RigidState, RobotModel,
-                                                auto_remat_segment, on_device)
+                                                auto_remat_segment, on_device,
+                                                rollout)
 
 __all__ = ["fit_terrain", "terrain_fit_step", "make_optimizer",
            "TerrainParams"]
-
-_EXACT_ENGINE = (
-    "fit_terrain takes the exact engine (engine.rollout) for robots with "
-    "flippers and for horizons of 256 steps or more, and it is not ported "
-    "yet (ROADMAP.md Queue 1: exact engine)")
 
 
 class TerrainParams(NamedTuple):
@@ -57,15 +54,21 @@ def make_optimizer(lr_z: float = 0.02, lr_friction: float = 0.01):
 
 def _loss_fn(params: TerrainParams, robot: RobotModel, controls, states_gt,
              pred_ts, gt_ts, state0, tv_weight: float, remat_segment=None):
-    if robot.has_flippers or remat_segment is not None:
-        raise NotImplementedError(_EXACT_ENGINE)
     from monoforce_tpu_torch.physics.fast import fast_rollout
 
     B = controls.shape[0]
     zb = params.z_grid.expand((B,) + params.z_grid.shape)
     fb = params.friction.expand((B,) + params.friction.shape)
-    states, _ = fast_rollout(robot, zb, controls, state0=state0, friction=fb,
-                             with_stats=False)
+    if not robot.has_flippers and remat_segment is None:
+        # the fast path: every terrain lookup a kernel on the card
+        states, _ = fast_rollout(robot, zb, controls, state0=state0,
+                                 friction=fb, with_stats=False)
+    else:
+        # fast_rollout has no remat: long horizons keep their
+        # O(N/K + K) BPTT memory in the exact engine
+        states, _, _ = rollout(robot, zb, controls, state0=state0,
+                               friction=fb, return_forces=False,
+                               remat_segment=remat_segment)
     loss = physics_loss([states.x], [states_gt[0]], pred_ts, gt_ts)
     if tv_weight > 0:
         loss = loss + tv_weight * total_variation(params.z_grid)
@@ -108,8 +111,7 @@ def fit_terrain(cfg, controls, states_gt, pred_ts, gt_ts, state0=None,
         ``verbose`` every step's loss is read and every tenth printed.
       device: where the fit runs; ``cuda`` unless the caller names another.
 
-    Returns (TerrainParams, list of float losses).  Raises
-    NotImplementedError where the JAX package takes the exact engine.
+    Returns (TerrainParams, list of float losses).
     """
     robot = RobotModel.from_config(cfg, device=device)
     # O(N) BPTT memory is trivial at fit-terrain scales; only genuinely

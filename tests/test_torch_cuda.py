@@ -495,3 +495,74 @@ def test_monoforce_run_launches_the_kernels(dev):
                 terrain["friction"][0, 0].cpu(), controls.cpu(), None, mf.cost)
     rmse = float(((plan.xs.cpu() - ref.xs) ** 2).mean().sqrt())
     assert rmse < 1e-3, rmse
+
+
+# ------------------------------------------ the exact engine and training
+
+
+@pytest.mark.parametrize("name", ["marv_flat", "marv_hill", "marv_hill_odeint",
+                                  "marv_sine", "marv_step", "tradr_flat",
+                                  "tradr_flat_odeint", "tradr_hill",
+                                  "tradr_hill_frgrad", "tradr_hill_odeint",
+                                  "tradr_sine", "tradr_sine_odeint",
+                                  "tradr_step"])
+def test_golden_on_the_card(dev, name):
+    """The reference engine's 13 golden cases through the port's exact
+    engine on the card (and the 9 euler ones through fast_rollout) at
+    tests/test_golden.py's gates."""
+    from monoforce_tpu_torch.physics.engine import rollout, rollout_odeint
+    from test_torch_golden import case_errors, load_case, passes
+
+    d, model, z, ctr, ja, fr = load_case(name, dev)
+    if "odeint" in name:
+        states, forces = rollout_odeint(model, z, ctr, joint_angles=ja,
+                                        friction=fr, dt=5.0 / (ctr.shape[1] - 1))
+    else:
+        states, forces, _ = rollout(model, z, ctr, joint_angles=ja,
+                                    friction=fr)
+        fast_states, _ = fast.fast_rollout(model, z, ctr, joint_angles=ja,
+                                           friction=fr)
+        err = case_errors(name, fast_states)
+        assert passes(err), ("fast_rollout", err)
+    assert states.x.device.type == "cuda"
+    err = case_errors(name, states, forces)
+    assert passes(err), err
+
+
+def test_train_step_on_the_card_matches_cpu(dev, tmp_path):
+    """chip_smoke.py's comparison of the train step (no drop-connect, TF32
+    off over forward and backward) at a small size: two 32 x 64 cameras,
+    the 128 x 128 grid, tradr at 0.4 m, B=2 x 100 steps of bench_all.py's
+    batch, with chip_smoke.py's tolerances: the losses within 1e-4
+    relative (the physics on the card's maps on both devices), the
+    gradients, Adam's first step, the BN statistics and the evaluator's
+    metrics as its constants state."""
+    import chip_smoke
+    from monoforce_tpu_torch.config import LSSConfig
+
+    lss = LSSConfig(data_aug_conf={"final_dim": (32, 64)},
+                    grid_conf={"xbound": (-6.4, 6.4, 0.1),
+                               "ybound": (-6.4, 6.4, 0.1),
+                               "zbound": (-3.2, 3.2, 6.4),
+                               "dbound": (0.6, 3.0, 0.2)})
+    dphys = PhysicsConfig(robot="tradr", grid_res=0.4)
+    ok, text = chip_smoke.compare_train_step(
+        dev, lss, dphys, chip_smoke.bench_all_batch(2, lss, dphys, "cpu"),
+        str(tmp_path))
+    assert ok, text
+
+
+def test_new_entry_points_run_on_the_card(dev, tmp_path):
+    """DPhysics, the Trainer and fit_terrain's exact branch run on cuda
+    when no device is named."""
+    from monoforce_tpu_torch.physics import DPhysics
+    from monoforce_tpu_torch.training import Trainer, fit_terrain
+
+    cfg = PhysicsConfig(robot="marv", grid_res=0.4, traj_sim_time=0.1)
+    assert DPhysics(cfg).robot.device.type == "cuda"
+    assert Trainer(cfg, log_dir=str(tmp_path)).device.type == "cuda"
+    ctr = np.random.default_rng(0).uniform(-1, 1, (2, 10, 2))
+    ts = np.tile(np.arange(10) * 0.01, (2, 1))
+    params, losses = fit_terrain(cfg, ctr, [np.zeros((2, 10, 3))], ts, ts,
+                                 n_iters=2)
+    assert params.z_grid.device.type == "cuda" and np.isfinite(losses).all()

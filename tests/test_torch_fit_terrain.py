@@ -9,7 +9,10 @@ reference is its fit step's own body (the value and gradient of
 compiling the JAX fit step for each case, or running it op by op, takes
 ~40 s a step on a CPU.  Bounds: losses within rtol 1e-4 and params within atol 1e-5
 (Adam moves each touched cell by ~lr a step whatever its gradient's size,
-so the params agree as far as the gradients' signs and ratios do).
+so the params agree as far as the gradients' signs and ratios do).  The
+exact-engine branch (marv, B=2, N=16; tradr, N=256 with remat segments)
+is held the same way against the JAX package's exact branch of
+``_loss_fn``.
 """
 
 import functools
@@ -28,6 +31,7 @@ from monoforce_tpu.physics.engine import RobotModel as JaxRobotModel
 from monoforce_tpu_torch import losses
 from monoforce_tpu_torch.config import PhysicsConfig
 from monoforce_tpu_torch.convert import ROBOT_LEAVES, robot_model_from_arrays
+from monoforce_tpu_torch.physics.engine import auto_remat_segment, rollout
 from monoforce_tpu_torch.physics.fast import fast_rollout
 from monoforce_tpu_torch.training import (TerrainParams, fit_terrain,
                                           make_optimizer, terrain_fit_step)
@@ -150,16 +154,78 @@ def test_three_fit_steps_match_jax(tv_weight):
                                    atol=1e-5, err_msg=name)
 
 
+@functools.lru_cache(maxsize=None)
+def _exact_case(case):
+    """A fit that takes the exact engine: marv (flippers) over 16 steps, or
+    tradr over 256 steps (remat segments of 16); ground truth from the
+    port's exact rollout on a hill; the JAX reference step from
+    ``_loss_fn``'s exact branch and the optax Adam, compiled once."""
+    robot, n = ("marv", 16) if case == "flippers" else ("tradr", 256)
+    jcfg = JaxPhysicsConfig(robot=robot, grid_res=0.4)
+    jr = JaxRobotModel.from_config(jcfg)
+    tr = robot_model_from_arrays(
+        {k: np.asarray(getattr(jr, k)) for k in ROBOT_LEAVES}, jr.n_tracks,
+        jr.has_flippers, jr.integration_mode, device="cpu")
+    rng = np.random.default_rng(1)
+    ctr = np.stack([rng.uniform(0.3, 1.0, (B, n)),
+                    rng.uniform(0.2, 0.8, (B, n))], axis=-1).astype(np.float32)
+    gx, gy = jcfg.grid_coords()
+    hill = (0.3 * np.exp(-((gx - 0.5) ** 2 + gy ** 2) / 2.0)).astype(
+        np.float32)
+    gt, _, _ = rollout(tr, torch.from_numpy(hill).expand((B,) + hill.shape),
+                       torch.from_numpy(ctr), return_forces=False)
+    gt = gt.x.numpy()
+    ts = np.tile(np.arange(n, dtype=np.float32)[None] * 0.01, (B, 1))
+    remat = auto_remat_segment(n, threshold=256)
+    jopt = jfit.make_optimizer(0.02, 0.01)
+    args = (jr, jnp.asarray(ctr), [jnp.asarray(gt)], jnp.asarray(ts),
+            jnp.asarray(ts), None, 0.0, remat)
+
+    @jax.jit
+    def jax_step(params, opt_state):
+        loss, grads = jax.value_and_grad(jfit._loss_fn)(params, *args)
+        updates, opt_state = jopt.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state, loss
+
+    return jcfg, jopt, jax_step, tr, ctr, gt, ts, remat
+
+
 @pytest.mark.parametrize("case", ["flippers", "long_horizon"])
 def test_exact_engine_branch_raises(case):
-    """fit_terrain takes the exact engine for flippers and for horizons of
-    256 steps or more; the port has none yet and says where it is queued."""
-    robot, n = ("marv", 8) if case == "flippers" else ("tradr", 256)
-    ctr = torch.zeros((1, n, 2))
-    ts = torch.zeros((1, n))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fit_terrain(PhysicsConfig(robot=robot), ctr, [torch.zeros((1, n, 3))],
-                    ts, ts, n_iters=1, device="cpu")
+    """fit_terrain's exact-engine branch (robots with flippers, horizons of
+    256 steps or more) no longer raises: three ``terrain_fit_step``s
+    through the port's exact engine against the JAX package's exact
+    branch, from rough initial params (same bounds as the fast path's),
+    and ``fit_terrain``'s first loss from its flat start."""
+    jcfg, jopt, jax_step, tr, ctr, gt, ts, remat = _exact_case(case)
+    assert (remat is not None) == (case == "long_horizon")
+    rng = np.random.default_rng(2)
+    z0 = rng.normal(scale=0.05, size=jcfg.grid_shape).astype(np.float32)
+    f0 = rng.uniform(0.4, 0.6, jcfg.grid_shape).astype(np.float32)
+    jp = jfit.TerrainParams(jnp.asarray(z0), jnp.asarray(f0))
+    jstate = jopt.init(jp)
+    tp = TerrainParams(torch.tensor(z0, requires_grad=True),
+                       torch.tensor(f0, requires_grad=True))
+    opt_state = make_optimizer(0.02, 0.01)(tp)
+    args_t = (tr, torch.from_numpy(ctr), [torch.from_numpy(gt)],
+              torch.from_numpy(ts), torch.from_numpy(ts), None)
+    for step in range(3):
+        jp, jstate, loss_j = jax_step(jp, jstate)
+        tp, opt_state, loss_t = terrain_fit_step(tp, opt_state, *args_t,
+                                                 remat_segment=remat)
+        np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-4,
+                                   err_msg=f"step {step}")
+    assert np.abs(np.asarray(jp.z_grid) - z0).max() > 0.03
+    for name in ("z_grid", "friction"):
+        np.testing.assert_allclose(getattr(tp, name).detach().numpy(),
+                                   np.asarray(getattr(jp, name)), rtol=0,
+                                   atol=1e-5, err_msg=name)
+    flat = jfit.TerrainParams(jnp.zeros(jcfg.grid_shape, jnp.float32),
+                              jnp.full(jcfg.grid_shape, 0.5, jnp.float32))
+    _, _, want = jax_step(flat, jopt.init(flat))
+    _, got = fit_terrain(PhysicsConfig(robot=jcfg.robot, grid_res=0.4), ctr,
+                         [gt], ts, ts, n_iters=1, device="cpu")
+    np.testing.assert_allclose(got[0], float(want), rtol=1e-4)
 
 
 def test_fit_terrain_reads_losses_per_chunk():

@@ -51,7 +51,12 @@ def test_port_and_chip_smoke_import_no_jax():
                 "monoforce_tpu_torch.ops.voxel_pool",
                 "monoforce_tpu_torch.models.terrain_encoder.lss",
                 "monoforce_tpu_torch.convert",
-                "monoforce_tpu_torch.pipeline"):
+                "monoforce_tpu_torch.pipeline",
+                "monoforce_tpu_torch.physics.terrain",
+                "monoforce_tpu_torch.physics.engine",
+                "monoforce_tpu_torch.training.trainer",
+                "monoforce_tpu_torch.training.evaluator",
+                "monoforce_tpu_torch.vis"):
         assert mod in res["imported"]
 
 
