@@ -11,14 +11,15 @@ Phases (any failure exits non-zero before the last line is printed):
 2. kernels -- call each kernel's wrapper at the main path's shapes (B=4096,
    and B=4094 for two; P=62, 148 and 202; the planner tick's B=64 for its
    two step formats, muq and pairmu; the terrain fit's B=16, P=97 for the
-   two lookup kernels) on windows cut by the port's extractors from a
+   two lookup kernels; the navigation simulator's B=1, P=62 for fk_interp)
+   on windows cut by the port's extractors from a
    seeded rough terrain, and hold it against its plain PyTorch version on
    the same inputs; print the largest difference, the tolerance, the
    kernel's mean device time from the profiler's trace with L2 flushed and
    with its inputs in L2, the median time of a wrapper call and of the
    plain version between CUDA events, and the bound; beside the lookup
    rows, the window words the taps touch and the 32-byte sectors that hold
-   them; beside the B=64 and B=16 rows, one launch's floor (a one-element
+   them; beside the B=64, B=16 and B=1 rows, one launch's floor (a one-element
    ``add_`` in the same kind of trace).  Then the JAX tests' accuracy
    oracles (tests/test_fast.py:304-443) on the kernels, at those tests'
    inputs: packed and pair3 against exact, muq against pair3.  That check
@@ -82,7 +83,27 @@ Phases (any failure exits non-zero before the last line is printed):
    ``fit_terrain``'s exact branch for marv at bench_all's fit shape
    (16 x 100, the 128 x 128 hill, 20 iterations): the loss falls and its
    first three losses agree with the same fit on the CPU.
-8. one JSON line listing every kernel with its launches on the main path,
+8. navigation -- ``navigate`` at scripts/navigate.py's full width:
+   ``PhysicsConfig.for_planner("tradr")`` on its hill (bench.py's gaussian
+   hill) with waypoints (2, -1.5) and (4, 0.5), 64 trajectories x 2 s
+   (200 steps, mode pair: navigate fills the friction grid) every 0.5 s,
+   10 Hz follower ticks, each simulating 10 steps of ``fast_rollout`` on
+   one trajectory, up to 40 s, force-variance cost, a generator seeded 0.
+   The route must complete, every replan launch fk_step_pairmu 200 times
+   and fk_interp once, every tick fk_interp 11 times, every output be
+   finite, and the first replan's paths (1e-4 m, the same best) and first
+   10 ticks' positions (1e-3 m) agree with the same loop through the plain
+   versions.  Prints ms per replan and per tick (medians), the route's wall
+   time, and from a profiled 5 s segment the card's busy share and both
+   kernels' device time per launch.  Then tests/test_nav.py's obstruction
+   scene at 64 trajectories (waiting, then forcing through, then reached,
+   within the speed bounds), and ``local_heightmap`` on one lidar scan
+   (131,072 seeded returns off the hill, 1% NaN) into tradr's 128 x 128
+   grid at 0.1 m with 16 inpaint iterations at a yawed pose: max-z and
+   mask equal to the CPU's cell for cell, the inpainted map within 1e-6;
+   prints ms per call.  Phase 2 times fk_interp at the simulator's shape
+   (B=1, P=62) beside the launch floor.
+9. one JSON line listing every kernel with its launches on the main path,
    its largest difference from the plain version, its time, the plain
    version's time and its bound on this card.
 
@@ -114,7 +135,14 @@ from monoforce_tpu_torch.physics.controls import shooting_controls
 from monoforce_tpu_torch.losses import physics_loss
 from monoforce_tpu_torch.physics.engine import (RobotModel, rollout,
                                                 rollout_odeint)
+from monoforce_tpu_torch.ops import heightmap
+from monoforce_tpu_torch.ops.heightmap import (estimate_heightmap,
+                                               local_heightmap)
 from monoforce_tpu_torch.pipeline import MonoForce
+from monoforce_tpu_torch.planner import navigator
+from monoforce_tpu_torch.planner.controller import FollowerController
+from monoforce_tpu_torch.planner.follower import FollowerParams
+from monoforce_tpu_torch.planner.navigator import navigate
 from monoforce_tpu_torch.planner.shooting import (Planner, PlanResult,
                                                   _plan, force_variance_cost,
                                                   inclination_cost)
@@ -254,6 +282,22 @@ TRAIN_SEED = 0
 # exact-branch fit's trajectories, steps and iterations (bench_all.py:101-132)
 TRAIN_B, TRAIN_STEPS = 24, 5
 EXACT_FIT = (16, 100, 20)
+# navigation: scripts/navigate.py's defaults (64 trajectories, 2 s plans,
+# replans every 0.5 s, 10 Hz ticks, 40 s, force variance; its hill is
+# gaussian_hill); each tick's simulator launches fk_interp for its settle
+# and its 10 steps; the first replan's paths and the first 10 ticks against
+# the plain versions (1e-4 m: 200 steps of float rounding on the smooth
+# hill; 1 mm after ten follower ticks); the local heightmap's inpainting
+# against the CPU; one lidar scan (128 beams x 1024 columns)
+NAV = dict(n_trajs=64, plan_horizon=2.0, replan_every=0.5, control_dt=0.1,
+           max_time=40.0, cost="force_variance")
+NAV_WAYPOINTS = np.asarray([[2.0, -1.5, 0.0], [4.0, 0.5, 0.0]])
+NAV_SIM_INTERP = 11
+NAV_PATH_TOL_M = 1e-4
+NAV_POS_TOL_M = 1e-3
+NAV_HM_TOL = 1e-6
+NAV_PROFILE_S = 5.0
+LIDAR_POINTS = 128 * 1024
 
 
 def _say(*parts):
@@ -313,6 +357,14 @@ def kernel_ms(fn, kernel: str, reps: int = 100, flush=None):
 def device_busy(fn, kernel: str):
     """One profiled call of ``fn``: (ms of all kernels on the card, ms of
     the kernels named ``kernel``, their number, host ms of the call)."""
+    total, wall, named = profile_kernels(fn, (kernel,))
+    return (total,) + named[kernel] + (wall,)
+
+
+def profile_kernels(fn, names):
+    """One profiled call of ``fn``: (ms of all kernels on the card, host ms
+    of the call, {name: (device ms, launches)} of the kernels whose names
+    hold each of ``names``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -321,15 +373,15 @@ def device_busy(fn, kernel: str):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    total = named = 0.0
-    count = 0
+    total, named = 0.0, {n: (0.0, 0) for n in names}
     for ev in prof.key_averages():
         t = ev.device_time_total / 1e3
         total += t
-        if kernel in ev.key:
-            named += t
-            count += ev.count
-    return total, named, count, wall
+        for n in names:
+            if n in ev.key:
+                ms, k = named[n]
+                named[n] = (ms + t, k + ev.count)
+    return total, wall, named
 
 
 def time_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -525,8 +577,9 @@ def check_kernels(dev, results, only=None):
     floor_note = (f"; launch floor at this batch: one-element add_ {floor[1]} "
                  f"ms with L2 flushed ({floor[0]} ms with its input in L2)")
     # (robot, voxel, batch, step formats, lookup kernels); B=64 is the
-    # planner tick's batch in its two step formats; the last case is the
-    # terrain fit's shape (tradr's default 0.11 m cloud, B=16)
+    # planner tick's batch in its two step formats; then the terrain fit's
+    # shape (tradr's default 0.11 m cloud, B=16) and the navigation
+    # simulator's (the planner preset's 0.15 m cloud, one trajectory)
     both = ("fk_interp", "fk_interp_bwd")
     cases = (("tradr", 0.15, 4096, ("zu", "pairmu"), ()),
              ("tradr", 0.1, 4096, ("zu", "muq", "pair3", "packed", "exact"),
@@ -535,7 +588,8 @@ def check_kernels(dev, results, only=None):
              ("husky", 0.1, 4094, ("packed",), ("fk_interp_bwd",)),
              ("tradr", 0.1, 64, ("muq",), ()),
              ("tradr", 0.15, 64, ("pairmu",), ()),
-             ("tradr", 0.11, 16, (), both))
+             ("tradr", 0.11, 16, (), both),
+             ("tradr", 0.15, 1, (), ("fk_interp",)))
     for robot_name, voxel, B, fmts, interp in cases:
         cfg = PhysicsConfig(robot=robot_name, mesh_voxel_size=voxel)
         robot = RobotModel.from_config(cfg, device=dev)
@@ -585,7 +639,7 @@ def check_kernels(dev, results, only=None):
         # (B=16) is one launch's latency, beside the floor
         note = (f"; window: {words} tapped words in {sectors} 32-byte "
                 f"sectors ({32 * sectors} bytes, the bound counts "
-                f"{4 * words})" + (floor_note if B == 16 else ""))
+                f"{4 * words})" + (floor_note if B in (1, 16) else ""))
         if only is not None:
             interp = [k for k in interp if k in only]
         if "fk_interp" in interp:
@@ -1463,6 +1517,224 @@ def run_train_step(dev, launches, card):
     return ok & good
 
 
+class _TimedController(FollowerController):
+    """The supervisor, logging when each replan hands it a path and when
+    each control tick starts (host clock; both follow a read-back, so the
+    card's work before them is done)."""
+
+    def __init__(self, *a, log, **kw):
+        super().__init__(*a, **kw)
+        self.log = log
+
+    def set_path(self, path):
+        super().set_path(path)
+        self.log.append(("replan_end", time.perf_counter()))
+
+    def tick(self, pose, t, cloud=None):
+        self.log.append(("tick", time.perf_counter()))
+        return super().tick(pose, t, cloud=cloud)
+
+
+@contextlib.contextmanager
+def _logged_replans(log):
+    """Log the start of each replan: navigate draws its controls first."""
+    draw = navigator.shooting_controls
+
+    def shooting_controls(*a, **kw):
+        log.append(("replan_start", time.perf_counter()))
+        return draw(*a, **kw)
+
+    navigator.shooting_controls = shooting_controls
+    try:
+        yield
+    finally:
+        navigator.shooting_controls = draw
+
+
+def loop_times(log):
+    """(ms per replan, ms per control tick) from a route's log: a replan
+    from drawing its controls to the path handed over; a control tick from
+    its start to the next replan's or tick's (the follower, the simulator's
+    10 steps and the position read back)."""
+    replans, ticks = [], []
+    start = None
+    for (kind, t), nxt in zip(log, log[1:] + [None]):
+        if kind == "replan_start":
+            start = t
+        elif kind == "replan_end":
+            replans.append((t - start) * 1e3)
+        elif nxt is not None:
+            ticks.append((nxt[1] - t) * 1e3)
+    return replans, ticks
+
+
+def nav_launches(res, counts, steps):
+    """The route's launches against its replans and ticks: the step kernel
+    once a planning step and fk_interp once a replan (the settle), and
+    fk_interp NAV_SIM_INTERP times a control tick (the simulator's settle
+    and 10 steps)."""
+    want = {n: 0 for n in WRAPPERS}
+    want["fk_step_pairmu"] = steps * len(res.plans)
+    want["fk_interp"] = len(res.plans) + NAV_SIM_INTERP * len(res.times)
+    return counts == want, {n: v for n, v in want.items() if v}
+
+
+def lidar_cloud(cfg, rng, n):
+    """A seeded scan of ``n`` returns off the navigation hill: x, y uniform
+    over the grid and a little past it, z the hill plus 0.01 m noise, 1% of
+    the returns NaN."""
+    xy = rng.uniform(-1.1 * cfg.d_max, 1.1 * cfg.d_max, (n, 2))
+    z = 0.4 * np.exp(-((xy[:, 0] - 2.0) ** 2 / 4.0 + xy[:, 1] ** 2 / 8.0))
+    cloud = np.concatenate([xy, (z + rng.normal(scale=0.01, size=n))[:, None]],
+                           axis=1).astype(np.float32)
+    cloud[rng.choice(n, n // 100, replace=False), rng.integers(0, 3, n // 100)] \
+        = np.nan
+    return cloud
+
+
+def run_local_heightmap(dev, card):
+    """Phase 8(c): local_heightmap on one lidar scan at tradr's grid, the
+    card against the CPU."""
+    cfg = PhysicsConfig.for_planner("tradr")
+    cloud = torch.from_numpy(lidar_cloud(cfg, np.random.default_rng(8),
+                                         LIDAR_POINTS))
+    yaw = 0.6
+    pose = torch.eye(4)
+    pose[:2, :2] = torch.tensor([[np.cos(yaw), -np.sin(yaw)],
+                                 [np.sin(yaw), np.cos(yaw)]])
+    pose[:3, 3] = torch.tensor([1.0, -0.5, 0.1])
+    args = (cfg.grid_res, cfg.d_max, cfg.h_max)
+    cloud_d, pose_d = cloud.to(dev), pose.to(dev)
+    raw = [estimate_heightmap(heightmap._robot_frame(c, p), *args)
+           for c, p in ((cloud_d, pose_d), (cloud, pose))]
+    maps = [local_heightmap(c, p, *args, inpaint_iters=16)
+            for c, p in ((cloud_d, pose_d), (cloud, pose))]
+    same = torch.equal(raw[0].cpu(), raw[1])
+    err = float((maps[0].cpu() - maps[1]).abs().max())
+    finite = bool(torch.isfinite(maps[0]).all())
+    ms = time_ms(lambda: local_heightmap(cloud_d, pose_d, *args), reps=20)
+    cpu_ms = wall_ms(lambda: local_heightmap(cloud, pose, *args), reps=5)
+    ok = same and err <= NAV_HM_TOL and finite and maps[0].shape == (128, 128)
+    _say(f"local_heightmap {LIDAR_POINTS} points -> {tuple(maps[0].shape)} "
+         f"at {cfg.grid_res} m, 16 inpaint iterations, yaw {yaw}: measured "
+         f"cells {int(raw[1][1].sum())}; max-z and mask equal to the CPU's "
+         f"{same}; inpainted max diff {err:.3e} (tol {NAV_HM_TOL:g}); "
+         f"{ms:.3f} ms per call on the card (CUDA events), {cpu_ms:.3f} ms "
+         f"on the host's CPU {'ok' if ok else 'FAILED'} [{card}]")
+    return ok
+
+
+def run_navigation(dev, launches, card):
+    """Phase 8: navigate at scripts/navigate.py's full width on the card,
+    the obstruction route, and local_heightmap on one lidar scan."""
+    cfg = PhysicsConfig.for_planner("tradr")
+    z = torch.from_numpy(gaussian_hill(cfg)).to(dev)
+    steps = int(NAV["plan_horizon"] / cfg.dt)
+    ok = True
+
+    # (a) the full-width route, timed replan by replan and tick by tick
+    log = []
+    ctl = _TimedController(log=log, device=dev)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    with _logged_replans(log):
+        t0 = time.perf_counter()
+        res = navigate(cfg, z, NAV_WAYPOINTS, controller=ctl,
+                       generator=torch.Generator(dev).manual_seed(0), device=dev,
+                       **NAV)
+        route_s = time.perf_counter() - t0
+    counts = {n: w.launches for n, w in WRAPPERS.items()}
+    for n, v in counts.items():
+        launches[n] = launches.get(n, 0) + v
+    good_counts, want = nav_launches(res, counts, steps)
+    finite = all(np.isfinite(a).all() for a in
+                 (res.positions, res.commands,
+                  *(p[1] for p in res.plans), *(p[2] for p in res.plans)))
+    replan_ms, tick_ms = loop_times(log)
+
+    # the same loop through the plain versions: the first replan and the
+    # first 10 ticks
+    with plain_kernels():
+        ref = navigate(cfg, z, NAV_WAYPOINTS,
+                       generator=torch.Generator(dev).manual_seed(0),
+                       device=dev, **dict(NAV, max_time=1.0))
+    path_err = float(np.abs(res.plans[0][1] - ref.plans[0][1]).max())
+    same_best = res.plans[0][3] == ref.plans[0][3]
+    pos_err = float(np.abs(res.positions[:10] - ref.positions[:10]).max())
+    good = (res.reached and good_counts and finite and same_best
+            and path_err <= NAV_PATH_TOL_M and pos_err <= NAV_POS_TOL_M)
+    _say(f"navigate route (tradr planner preset, {NAV['n_trajs']} x {steps} "
+         f"a replan, ticks of {NAV['control_dt']} s, the hill, waypoints "
+         f"{NAV_WAYPOINTS.tolist()}): reached {res.reached} at t="
+         f"{res.times[-1]:.1f} s, {len(res.times)} ticks, {len(res.plans)} "
+         f"replans; launches { {n: v for n, v in counts.items() if v} } "
+         f"{'ok' if good_counts else 'WRONG, want ' + str(want)}; finite "
+         f"{finite}; against the plain versions: first replan's paths max "
+         f"diff {path_err:.3e} m (tol {NAV_PATH_TOL_M:g}), best "
+         f"{res.plans[0][3]} (plain {ref.plans[0][3]}), first 10 ticks' "
+         f"positions max diff {pos_err:.3e} m (tol {NAV_POS_TOL_M:g}); "
+         f"{statistics.median(replan_ms):.3f} ms per replan (median of "
+         f"{len(replan_ms)}, {min(replan_ms):.3f}-{max(replan_ms):.3f}), "
+         f"{statistics.median(tick_ms):.3f} ms per control tick (median of "
+         f"{len(tick_ms)}, {min(tick_ms):.3f}-{max(tick_ms):.3f}); route "
+         f"wall time {route_s:.3f} s {'ok' if good else 'FAILED'} [{card}]")
+    ok &= good
+
+    # a profiled 5 s segment of the route: the card's busy share and the
+    # two kernels' device time per launch
+    seg = dict(NAV, max_time=NAV_PROFILE_S)
+    busy, wall, named = profile_kernels(
+        lambda: navigate(cfg, z, NAV_WAYPOINTS,
+                         generator=torch.Generator(dev).manual_seed(0),
+                         device=dev, **seg),
+        ("fk_step_kernel", "fk_interp_kernel"))
+    _say(f"navigate, one profiled {NAV_PROFILE_S:g} s segment: card busy "
+         f"{busy:.3f} ms of {wall:.3f} ms ({100 * busy / wall:.1f}%); "
+         + "; ".join(f"{n} {ms:.3f} ms in {k} launches, "
+                     f"{1e3 * ms / max(k, 1):.2f} us per launch"
+                     for n, (ms, k) in named.items()) + f" [{card}]")
+
+    # (b) tests/test_nav.py's obstruction scene at full width
+    rng = np.random.default_rng(3)
+    obstacles = (np.array([[1.1, 0.0, 0.1]], np.float32)
+                 + rng.normal(scale=0.05, size=(30, 3)).astype(np.float32))
+    ctl = FollowerController(FollowerParams(), force_through_after=0.5,
+                             device=dev)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    res = navigate(cfg, torch.zeros(cfg.grid_shape, device=dev),
+                   np.asarray([[2.8, 0.0, 0.0]]), n_trajs=NAV["n_trajs"],
+                   plan_horizon=1.5, max_time=30.0, obstacles=obstacles,
+                   controller=ctl, generator=torch.Generator(dev).manual_seed(0),
+                   device=dev)
+    obs_s = time.perf_counter() - t0
+    counts = {n: w.launches for n, w in WRAPPERS.items()}
+    for n, v in counts.items():
+        launches[n] = launches.get(n, 0) + v
+    good_counts, want = nav_launches(res, counts, int(1.5 / cfg.dt))
+    st = list(res.statuses)
+    order = ("waiting" in st and "force_through" in st
+             and st.index("waiting") < st.index("force_through"))
+    bounds = all(abs(res.commands[i][0]) < 1e-6 for i, s in enumerate(st)
+                 if s == "waiting") and all(
+        abs(res.commands[i][0]) <= ctl.max_force_through_speed + 1e-6
+        for i, s in enumerate(st) if s == "force_through")
+    good = res.reached and order and bounds and good_counts
+    _say(f"navigate obstruction route ({NAV['n_trajs']} x 150, flat, 30 "
+         f"obstacle points at (1.1, 0, 0.1), force through after 0.5 s): "
+         f"reached {res.reached} at t={res.times[-1]:.1f} s, {len(st)} ticks "
+         f"({st.count('waiting')} waiting, {st.count('force_through')} "
+         f"forcing through), {len(res.plans)} replans; waiting then forcing "
+         f"through {order}; speed bounds {bounds}; launches "
+         f"{'ok' if good_counts else 'WRONG, want ' + str(want)}; "
+         f"{obs_s:.3f} s {'ok' if good else 'FAILED'}")
+    ok &= good
+
+    # (c) local_heightmap at a lidar scan's size
+    return ok & run_local_heightmap(dev, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1492,7 +1764,9 @@ def main() -> int:
                       ("exact engine",
                        lambda: run_exact_engine(dev, launches, card)),
                       ("train step",
-                       lambda: run_train_step(dev, launches, card))):
+                       lambda: run_train_step(dev, launches, card)),
+                      ("navigation",
+                       lambda: run_navigation(dev, launches, card))):
         t1 = time.perf_counter()
         good = fn()
         _say(f"phase {phase}: {'ok' if good else 'FAILED'} in "

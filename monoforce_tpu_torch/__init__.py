@@ -6,7 +6,8 @@ nothing of it and no JAX.  Its layout mirrors the JAX package's, so each
 module's counterpart has the same path.  Ported so far: the shooting
 planner's serving path in every mode, the differentiable rollout and
 terrain fitting through it, the LSS terrain encoder and the online tick
-(images to the best path).
+(images to the best path), the exact engine and training, and navigation
+(the closed loop plan -> select -> follow -> simulate) with its geometry.
 
 - ``monoforce_tpu_torch.config``   -- ``PhysicsConfig``, ``LSSConfig`` (own
   copies).
@@ -15,7 +16,10 @@ terrain fitting through it, the LSS terrain encoder and the online tick
   (``physics.fast.fast_rollout``).
 - ``monoforce_tpu_torch.ops``      -- the Hopper kernels (CUDA C++ under
   ``ops/csrc``) with their plain PyTorch versions.
-- ``monoforce_tpu_torch.planner``  -- path costs, selection and ``Planner``.
+- ``monoforce_tpu_torch.planner``  -- path costs, selection, ``Planner``,
+  the follower and its supervisor, the waypoint route and ``navigate``.
+- ``monoforce_tpu_torch.transformations``, ``.gridmap``, ``.ops.heightmap``
+  -- SE(3) helpers, the grid-map interchange, cloud rasterization.
 - ``monoforce_tpu_torch.losses``   -- the training losses.
 - ``monoforce_tpu_torch.training`` -- ``fit_terrain``: terrain and friction
   fitted by gradient descent through the rollout.

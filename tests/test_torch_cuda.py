@@ -566,3 +566,74 @@ def test_new_entry_points_run_on_the_card(dev, tmp_path):
     params, losses = fit_terrain(cfg, ctr, [np.zeros((2, 10, 3))], ts, ts,
                                  n_iters=2)
     assert params.z_grid.device.type == "cuda" and np.isfinite(losses).all()
+
+
+# ------------------------------------------------------------ navigation
+
+
+def test_navigate_on_the_card(dev, monkeypatch):
+    """A short route on the card (tradr's planner preset, 16 trajectories
+    over 1 s, the friction grid navigate fills: mode pair): navigate and
+    FollowerController default to cuda; every replan launches
+    fk_step_pairmu once a step and fk_interp once, every control tick
+    fk_interp 11 times (the simulator's settle and 10 steps); the first
+    replan's paths within 1e-4 m of the CPU's on the same controls."""
+    from monoforce_tpu_torch.planner.controller import FollowerController
+    from monoforce_tpu_torch.planner.navigator import navigate
+
+    cfg = PhysicsConfig.for_planner("tradr")
+    gx, gy = cfg.grid_coords()
+    z = (0.15 * np.exp(-((gx - 2.0) ** 2 + gy ** 2) / 3.0)).astype(np.float32)
+    assert FollowerController().device.type == "cuda"
+    for w in WRAPPERS.values():
+        w.launches = 0
+    kw = dict(waypoints=np.asarray([[2.5, 1.0, 0.0]]), n_trajs=16,
+              plan_horizon=1.0, max_time=3.0)
+    res = navigate(cfg, torch.from_numpy(z).to(dev), **kw)
+    torch.cuda.synchronize()
+    n_plans, n_ticks = len(res.plans), len(res.times)
+    want = {n: 0 for n in WRAPPERS}
+    want["fk_step_pairmu"] = 100 * n_plans
+    want["fk_interp"] = n_plans + 11 * n_ticks
+    assert {n: w.launches for n, w in WRAPPERS.items()} == want
+    assert np.isfinite(res.positions).all() and n_plans >= 2
+    # the CPU from the same controls: the card's generator makes them
+    from monoforce_tpu_torch.planner import navigator
+
+    card_gen = torch.Generator(dev).manual_seed(0)
+    draw = navigator.shooting_controls
+    monkeypatch.setattr(navigator, "shooting_controls",
+                        lambda _, *a: tuple(t.cpu() for t in draw(card_gen,
+                                                                  *a)))
+    cpu = navigate(cfg, z, device="cpu", **dict(kw, max_time=0.1))
+    assert res.plans[0][3] == cpu.plans[0][3]
+    err = np.abs(res.plans[0][1] - cpu.plans[0][1]).max()
+    assert err < 1e-4, err
+
+
+def test_estimate_heightmap_on_the_card_matches_cpu(dev):
+    """Max-z and mask cell for cell, bit for bit, and local_heightmap's
+    inpainted map within 1e-6 of the CPU's, on a 20k-point cloud with NaN
+    returns and points on the bin borders."""
+    from monoforce_tpu_torch.ops.heightmap import (estimate_heightmap,
+                                                   local_heightmap)
+
+    rng = np.random.default_rng(7)
+    pts = rng.uniform(-7.0, 7.0, (20000, 3)).astype(np.float32)
+    bins = np.arange(-6.4, 6.4, 0.1, dtype=np.float32)
+    pts[:len(bins), 0] = bins
+    pts[:len(bins), 1] = rng.permutation(bins)
+    pts[rng.choice(20000, 200, replace=False), 2] = np.nan
+    cpu = torch.from_numpy(pts)
+    got = estimate_heightmap(cpu.to(dev), 0.1, 6.4, 2.0, r_min=0.6)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), estimate_heightmap(cpu, 0.1, 6.4, 2.0,
+                                                     r_min=0.6))
+    pose = torch.eye(4)
+    pose[:2, :2] = torch.tensor([[np.cos(0.7), -np.sin(0.7)],
+                                 [np.sin(0.7), np.cos(0.7)]])
+    pose[:3, 3] = torch.tensor([0.5, -0.3, 0.1])
+    lm = local_heightmap(cpu.to(dev), pose.to(dev), 0.1, 6.4, 2.0)
+    torch.testing.assert_close(lm.cpu(), local_heightmap(cpu, pose, 0.1, 6.4,
+                                                         2.0),
+                               atol=1e-6, rtol=0)

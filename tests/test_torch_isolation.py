@@ -56,7 +56,11 @@ def test_port_and_chip_smoke_import_no_jax():
                 "monoforce_tpu_torch.physics.engine",
                 "monoforce_tpu_torch.training.trainer",
                 "monoforce_tpu_torch.training.evaluator",
-                "monoforce_tpu_torch.vis"):
+                "monoforce_tpu_torch.vis",
+                "monoforce_tpu_torch.planner.navigator",
+                "monoforce_tpu_torch.planner.controller",
+                "monoforce_tpu_torch.transformations",
+                "monoforce_tpu_torch.ops.heightmap"):
         assert mod in res["imported"]
 
 
