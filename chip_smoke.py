@@ -103,7 +103,25 @@ Phases (any failure exits non-zero before the last line is printed):
    mask equal to the CPU's cell for cell, the inpainted map within 1e-6;
    prints ms per call.  Phase 2 times fk_interp at the simulator's shape
    (B=1, P=62) beside the launch floor.
-9. one JSON line listing every kernel with its launches on the main path,
+9. from disk -- the port started the way its users start it: a synthetic
+   ROUGH sequence at the real sizes written to disk (26 frames; four
+   1200 x 1920 camera PNGs of seeded photo-like texture a frame and their
+   segmentation PNGs; one 131,072-point lidar scan a frame, phase 8's
+   ``lidar_cloud``; 10 Hz poses and commands; a calibration with four
+   yawed cameras), then ``scripts/train.py``'s ``main`` in-process at its
+   defaults (marv, 0.4 m, 5 s: 500 steps of the exact engine) with the
+   reference's production values (``--bsz 24 --terrain_weight 3.0
+   --phys_weight 4.0``) for two epochs of one batch each (24 train, 2 val
+   samples): the first cold (resize cache and labels written, by the
+   native host ops), the second warm and profiled; one more warm step
+   unprofiled; ``scripts/eval.py``'s ``main`` over the val split; and
+   ``scripts/run.py``'s ``main`` from the trained checkpoint (loaded
+   strictly) at full width, which must launch its mode's step kernel once
+   per step and fk_interp once.  Prints the loader's seconds per batch
+   cold and warm (timed alone), seconds per train step, the card's busy
+   share over the warm epoch, the peak memory and the bytes per PNG; the
+   losses must be finite.  The sequence is removed afterwards.
+10. one JSON line listing every kernel with its launches on the main path,
    its largest difference from the plain version, its time, the plain
    version's time and its bound on this card.
 
@@ -115,18 +133,23 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import gc
 import glob
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
 
+from monoforce_tpu_torch import native
 from monoforce_tpu_torch.config import LSSConfig, PhysicsConfig
 from monoforce_tpu_torch.models.terrain_encoder.geometry import get_geometry
 from monoforce_tpu_torch.ops import _build, fk_step_cuda, interp_cuda
@@ -140,6 +163,10 @@ from monoforce_tpu_torch.ops.heightmap import (estimate_heightmap,
                                                local_heightmap)
 from monoforce_tpu_torch.pipeline import MonoForce
 from monoforce_tpu_torch.planner import navigator
+from monoforce_tpu_torch.scripts import eval as eval_script
+from monoforce_tpu_torch.scripts import run as run_script
+from monoforce_tpu_torch.scripts import train as train_script
+from monoforce_tpu_torch.scripts._common import have_matplotlib
 from monoforce_tpu_torch.planner.controller import FollowerController
 from monoforce_tpu_torch.planner.follower import FollowerParams
 from monoforce_tpu_torch.planner.navigator import navigate
@@ -148,6 +175,7 @@ from monoforce_tpu_torch.planner.shooting import (Planner, PlanResult,
                                                   inclination_cost)
 from monoforce_tpu_torch.training import Evaluator, Trainer, fit_terrain
 from monoforce_tpu_torch.models.terrain_encoder.lss import float32_math
+from monoforce_tpu_torch.utils import NumpyLoader
 from monoforce_tpu_torch.training.trainer import (_physics_states,
                                                   compute_losses,
                                                   make_train_step)
@@ -298,6 +326,29 @@ NAV_POS_TOL_M = 1e-3
 NAV_HM_TOL = 1e-6
 NAV_PROFILE_S = 5.0
 LIDAR_POINTS = 128 * 1024
+# from disk: a synthetic ROUGH sequence at the real sizes (26 frames, four
+# cameras of DEFAULT_LSS_CONFIG's 1200 x 1920, one lidar scan a frame),
+# split 24 train / 2 val by compile_data; scripts/train.py's defaults (marv,
+# 0.4 m, 5 s) with the production values of the reference's train.sh
+# (scripts/train.py:4-6) for two epochs, the first cold (the resize cache
+# and the labels written), the second warm; frames at 5 Hz, poses and
+# commands at 10 Hz for 12 s past the last frame (the labels look 10 s
+# ahead); the lidar 0.6 m above base_link, the cameras 7 degrees off the
+# ego axes (frustum points off the cell borders); extra arguments of every
+# script (a CPU rehearsal passes a tiny LSS config and a short horizon)
+DISK_FRAMES = 26
+DISK_HW = (1200, 1920)
+DISK_POINTS = LIDAR_POINTS
+DISK_TRAIN_ARGS = ["--bsz", "24", "--terrain_weight", "3.0",
+                   "--phys_weight", "4.0", "--nepochs", "2"]
+DISK_ARGS: list = []
+DISK_CAMS = {"camera_left": 97.0, "camera_front": 7.0,
+             "camera_right": -83.0, "camera_rear": 187.0}
+DISK_LIDAR_Z = 0.6
+# scripts/run.py's tick at its defaults: tradr's 0.11 m cloud (P=97) with
+# the friction head is mode pair3_muq, 500 step launches and one lookup
+DISK_RUN_MODE = "pair3_muq"
+DISK_RUN_LAUNCHES = {"fk_step_muq": 500, "fk_interp": 1}
 
 
 def _say(*parts):
@@ -361,10 +412,13 @@ def device_busy(fn, kernel: str):
     return (total,) + named[kernel] + (wall,)
 
 
-def profile_kernels(fn, names):
-    """One profiled call of ``fn``: (ms of all kernels on the card, host ms
+def profile_kernels(fn, names=()):
+    """One profiled call of ``fn``: (ms of all the card's activity, host ms
     of the call, {name: (device ms, launches)} of the kernels whose names
-    hold each of ``names``)."""
+    hold each of ``names``).  The total is summed over the profiler's raw
+    events: a train epoch from disk launches ~1e6 kernels, which
+    ``key_averages`` takes over a minute to convert, so it runs only when
+    kernels are named."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -373,14 +427,15 @@ def profile_kernels(fn, names):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    total, named = 0.0, {n: (0.0, 0) for n in names}
-    for ev in prof.key_averages():
-        t = ev.device_time_total / 1e3
-        total += t
+    cuda = torch.autograd.DeviceType.CUDA
+    total = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                if e.device_type() == cuda) / 1e6
+    named = {n: (0.0, 0) for n in names}
+    for ev in (prof.key_averages() if names else ()):
         for n in names:
             if n in ev.key:
                 ms, k = named[n]
-                named[n] = (ms + t, k + ev.count)
+                named[n] = (ms + ev.device_time_total / 1e3, k + ev.count)
     return total, wall, named
 
 
@@ -577,8 +632,9 @@ def check_kernels(dev, results, only=None):
     floor_note = (f"; launch floor at this batch: one-element add_ {floor[1]} "
                  f"ms with L2 flushed ({floor[0]} ms with its input in L2)")
     # (robot, voxel, batch, step formats, lookup kernels); B=64 is the
-    # planner tick's batch in its two step formats; then the terrain fit's
-    # shape (tradr's default 0.11 m cloud, B=16) and the navigation
+    # planner tick's batch in its two step formats, and scripts/run.py's
+    # tick at its defaults (tradr's 0.11 m cloud: muq and the lookup); then
+    # the terrain fit's shape (the same cloud, B=16) and the navigation
     # simulator's (the planner preset's 0.15 m cloud, one trajectory)
     both = ("fk_interp", "fk_interp_bwd")
     cases = (("tradr", 0.15, 4096, ("zu", "pairmu"), ()),
@@ -588,6 +644,7 @@ def check_kernels(dev, results, only=None):
              ("husky", 0.1, 4094, ("packed",), ("fk_interp_bwd",)),
              ("tradr", 0.1, 64, ("muq",), ()),
              ("tradr", 0.15, 64, ("pairmu",), ()),
+             ("tradr", 0.11, 64, ("muq",), ("fk_interp",)),
              ("tradr", 0.11, 16, (), both),
              ("tradr", 0.15, 1, (), ("fk_interp",)))
     for robot_name, voxel, B, fmts, interp in cases:
@@ -1735,6 +1792,347 @@ def run_navigation(dev, launches, card):
     return ok & run_local_heightmap(dev, card)
 
 
+def _png(arr, path):
+    from PIL import Image
+    Image.fromarray(arr).save(path)
+    return os.path.getsize(path)
+
+
+def _texture(seed, hw):
+    """A seeded photo-like RGB frame: colour fields at three scales (bicubic
+    upsamples of coarse noise) and per-pixel sensor grain."""
+    from PIL import Image
+    H, W = hw
+    rng = np.random.default_rng(seed)
+    img = np.full((H, W, 3), 110.0, np.float32)
+    for (h, w), amp in (((6, 10), 70.0), ((30, 48), 30.0), ((150, 240), 12.0)):
+        coarse = rng.normal(size=(h, w, 3)).astype(np.float32)
+        for c in range(3):
+            img[..., c] += amp * np.asarray(Image.fromarray(
+                coarse[..., c]).resize((W, H), Image.BICUBIC))
+    img += rng.normal(scale=3.0, size=(H, W, 3)).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _segmentation(seed, hw):
+    """Seeded WildScenes labels in bands: sky above, trees, bush, rock and
+    logs in the middle, ground classes below, blocks of 50 x 48 px."""
+    H, W = hw
+    rng = np.random.default_rng(seed)
+    rows, cols = 24, 40
+    bands = ((0.3, [10]), (0.55, [12, 13, 0, 9, 5]), (1.0, [1, 3, 4, 6, 9]))
+    grid = np.empty((rows, cols), np.uint8)
+    top = 0
+    for frac, classes in bands:
+        bottom = int(round(frac * rows))
+        grid[top:bottom] = rng.choice(classes, (bottom - top, cols))
+        top = bottom
+    return np.repeat(np.repeat(grid, -(-H // rows), 0), -(-W // cols), 1)[:H, :W]
+
+
+def _pose(t):
+    """base_link's pose at t s: a 0.5 m/s arc turning at 0.1 rad/s,
+    climbing 2 cm/s, rolling and pitching a little."""
+    from scipy.spatial.transform import Rotation
+    v, w = 0.5, 0.1
+    T = np.eye(4)
+    T[:3, :3] = Rotation.from_euler(
+        "xyz", [0.03 * np.sin(0.7 * t), 0.04 * np.sin(0.5 * t), w * t]
+    ).as_matrix()
+    T[:3, 3] = [v / w * np.sin(w * t), v / w * (1 - np.cos(w * t)), 0.02 * t]
+    return T
+
+
+def _yaml(obj, path):
+    import yaml
+    with open(path, "w") as f:
+        yaml.safe_dump(obj, f)
+
+
+def _mat(T):
+    T = np.asarray(T, np.float64)
+    return {"rows": T.shape[0], "cols": T.shape[1],
+            "data": [float(v) for v in T.reshape(-1)]}
+
+
+def write_rough_sequence(root, n_frames, hw, n_points, seed=9):
+    """A synthetic ROUGH sequence under ``root/ROUGH`` in the reference's
+    layout (its docs/DATA.md; tests/fixtures.py at the real sizes): for each
+    of ``n_frames`` frames at 5 Hz one lidar scan (phase 8's
+    ``lidar_cloud``, x/y/z/intensity, in the lidar frame), four camera PNGs
+    and their segmentation PNGs; 10 Hz lidar poses and commands; the
+    calibration.  Written by 8 threads (PNG encoding releases the GIL).
+    Returns (the sequence's path, {kind: mean bytes per PNG})."""
+    H, W = hw
+    seq = os.path.join(root, "ROUGH", "synthetic_2026-01-01-00-00-00")
+    for sub in ("clouds", "poses", "controls", "images",
+                "images/wildscenes_seg/seg", "calibration/cameras"):
+        os.makedirs(os.path.join(seq, sub))
+    t0 = 1000.0
+    stamps = t0 + 0.2 * np.arange(n_frames)
+    ids = [f"{int(s)}_{int(round((s - int(s)) * 1e9)):09d}" for s in stamps]
+    T_lidar = np.eye(4)
+    T_lidar[2, 3] = DISK_LIDAR_Z
+
+    pose_ts = t0 + 0.1 * np.arange(int(10 * (0.2 * n_frames + 12.0)))
+    rows = [[t] + (_pose(t - t0) @ T_lidar)[:3, :4].reshape(-1).tolist()
+            for t in pose_ts]
+    np.savetxt(os.path.join(seq, "poses", "lidar_poses.csv"), np.asarray(rows),
+               delimiter=",", header="stamp," + ",".join(
+                   f"T{i}{j}" for i in range(3) for j in range(4)),
+               comments="")
+    rng = np.random.default_rng(seed)
+    cmd = [[t, 0.5 + 0.05 * rng.normal(), 0.1 + 0.02 * rng.normal()]
+           for t in pose_ts]
+    np.savetxt(os.path.join(seq, "controls", "cmd_vel.csv"), np.asarray(cmd),
+               delimiter=",", header="stamp,v,w", comments="")
+
+    cfg = PhysicsConfig()
+    for sid in ids:
+        xyz = lidar_cloud(cfg, rng, n_points)
+        cloud = np.zeros(n_points, dtype=[("x", "f4"), ("y", "f4"),
+                                          ("z", "f4"), ("intensity", "f4")])
+        cloud["x"], cloud["y"] = xyz[:, 0], xyz[:, 1]
+        cloud["z"] = xyz[:, 2] - DISK_LIDAR_Z
+        cloud["intensity"] = rng.uniform(0, 255, n_points)
+        np.savez(os.path.join(seq, "clouds", f"{sid}.npz"), cloud=cloud)
+
+    K = np.array([[1100.0, 0, W / 2], [0, 1100.0, H / 2], [0, 0, 1]])
+    to_ego = np.array([[0, 0, 1], [-1, 0, 0], [0, -1, 0]], np.float64)
+    pitch = np.deg2rad(-8.0)       # the optical axis 8 degrees down
+    tilt = np.array([[1, 0, 0], [0, np.cos(pitch), -np.sin(pitch)],
+                     [0, np.sin(pitch), np.cos(pitch)]])
+    footprint = np.eye(4)
+    footprint[2, 3] = -0.15
+    trans = {"T_base_link__os_sensor": _mat(T_lidar),
+             "T_base_link__base_footprint": _mat(footprint)}
+    for cam, yaw_deg in DISK_CAMS.items():
+        a = np.deg2rad(yaw_deg)
+        E = np.eye(4)
+        E[:3, :3] = np.array([[np.cos(a), -np.sin(a), 0],
+                              [np.sin(a), np.cos(a), 0],
+                              [0, 0, 1]]) @ to_ego @ tilt
+        E[:3, 3] = [0.3 * np.cos(a) + 0.02, 0.3 * np.sin(a) - 0.03, 0.5]
+        trans[f"T_base_link__{cam}"] = _mat(E)
+        _yaml({"camera_name": cam, "image_width": W, "image_height": H,
+               "camera_matrix": _mat(K)},
+              os.path.join(seq, "calibration", "cameras", f"{cam}.yaml"))
+    _yaml(trans, os.path.join(seq, "calibration", "transformations.yaml"))
+
+    jobs = []
+    for f, sid in enumerate(ids):
+        for c, cam in enumerate(DISK_CAMS):
+            k = seed * 100003 + 4 * f + c
+            jobs.append(("rgb", lambda k=k: _texture(k, hw), os.path.join(
+                seq, "images", f"{sid}_{cam}.png")))
+            jobs.append(("seg", lambda k=k: _segmentation(k, hw), os.path.join(
+                seq, "images", "wildscenes_seg", "seg", f"{sid}_{cam}.png")))
+    with ThreadPoolExecutor(8) as pool:
+        sizes = list(pool.map(lambda j: (j[0], _png(j[1](), j[2])), jobs))
+    return seq, {kind: statistics.mean(n for k, n in sizes if k == kind)
+                 for kind in ("rgb", "seg")}
+
+
+class _TimedLoader(NumpyLoader):
+    """scripts/train.py's NumpyLoader, timed alone: the seconds each batch
+    took to load, by split and pass."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.passes = []
+
+    def __iter__(self):
+        times = []
+        self.passes.append(times)
+        it = super().__iter__()
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            times.append(time.perf_counter() - t0)
+            yield batch
+
+
+class _TimedTrainer(Trainer):
+    """scripts/train.py's Trainer, its steps timed (synchronised) and its
+    second train epoch (the warm one) profiled: the card's kernel time and
+    the epoch's wall time."""
+
+    def init_state(self, *args, **kwargs):
+        out = super().init_state(*args, **kwargs)
+        step = self.train_step
+        self.step_s, self.epoch_s, self.train_epochs = [], [], 0
+        self.warm = None
+
+        def timed(batch, generator=None):
+            torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            aux = step(batch, generator)
+            torch.cuda.synchronize(self.device)
+            self.step_s.append(time.perf_counter() - t0)
+            return aux
+
+        self.train_step = timed
+        return out
+
+    def epoch(self, loader, train=True, generator=None, step0=0):
+        warm = train and self.train_epochs == 1
+        self.train_epochs += bool(train)
+        t0 = time.perf_counter()
+        if warm:
+            out = []
+            self.warm = profile_kernels(lambda: out.append(
+                super(_TimedTrainer, self).epoch(loader, train, generator,
+                                                 step0)))[:2]
+            out = out[0]
+        else:
+            out = super().epoch(loader, train, generator, step0)
+        self.epoch_s.append(("train" if train else "val",
+                             round(time.perf_counter() - t0, 3)))
+        return out
+
+
+def run_from_disk(dev, launches, card):
+    """Phase 9: train, eval and run from a ROUGH sequence on disk, through
+    the entry points' main(argv)."""
+    ok = True
+    H, W = DISK_HW
+    os.makedirs(os.path.join(REPO, "runs"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "runs")) as root:
+        t0 = time.perf_counter()
+        seq, png = write_rough_sequence(os.path.join(root, "data"),
+                                        DISK_FRAMES, DISK_HW, DISK_POINTS)
+        _say(f"from disk: wrote a synthetic ROUGH sequence of {DISK_FRAMES} "
+             f"frames ({len(DISK_CAMS)} cameras {H}x{W}, {DISK_POINTS} lidar "
+             f"points a frame) in {time.perf_counter() - t0:.1f} s; bytes per "
+             f"PNG: RGB {png['rgb']:.0f}, segmentation {png['seg']:.0f}")
+        labels_native = native.available()
+        dev_arg = ["--device", str(dev)]
+        log_dir = os.path.join(root, "train")
+
+        # (a) scripts/train.py's main, the loader and the steps timed
+        loaders = []       # the train loader (shuffled), then the val loader
+
+        def loader(*args, **kwargs):
+            loaders.append(_TimedLoader(*args, **kwargs))
+            return loaders[-1]
+
+        torch.zeros(1, device=dev)     # the allocator's stats exist from here
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with mock.patch.object(train_script, "NumpyLoader", loader), \
+                mock.patch.object(train_script, "Trainer", _TimedTrainer):
+            tr = train_script.main(["--data_dir", os.path.join(root, "data"),
+                                    "--log_dir", log_dir, *DISK_TRAIN_ARGS,
+                                    *DISK_ARGS, *dev_arg])
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        recs = [json.loads(line)
+                for line in open(os.path.join(log_dir, "metrics.jsonl"))]
+        losses = [r[k] for r in recs for k in r if k.startswith("iter_loss")]
+        finite = bool(losses) and all(np.isfinite(losses))
+        resized = glob.glob(os.path.join(seq, "images", "resized", "*.png"))
+        n_labels = [len(glob.glob(os.path.join(seq, "terrain", k, "*.npy")))
+                    for k in ("geom", "rigid")]
+        loader_s = {name: [sum(p) / max(len(p), 1) for p in ld.passes]
+                    for name, ld in zip(("train", "val"), loaders)}
+        busy, wall = tr.warm or (0.0, 1.0)
+        n_batches = [len(p) for p in loaders[0].passes]
+        good = (finite and len(tr.step_s) == 2 and n_batches == [1, 1]
+                and n_labels == [DISK_FRAMES, DISK_FRAMES] and labels_native
+                and len(resized) == len(DISK_CAMS) * DISK_FRAMES)
+        epochs = [(r["split"], round(r["epoch_loss_total"], 6)) for r in recs
+                  if "epoch_loss_total" in r]
+        _say(f"from disk train (scripts/train.py main: marv, 0.4 m, "
+             f"{tr.dphys_cfg.traj_sim_time} s = {tr.dphys_cfg.n_sim_steps} "
+             f"steps, {' '.join(DISK_TRAIN_ARGS)}): {len(tr.step_s)} steps in "
+             f"{train_s:.1f} s; loader alone, s per batch of 24 train "
+             f"samples: cold {loader_s['train'][0]:.3f}, warm "
+             + (f"{loader_s['train'][1]:.3f}" if len(loader_s['train']) > 1
+                else "-")
+             + "; val batch of 2: "
+             + ", ".join(f"{t:.3f}" for t in loader_s["val"])
+             + "; s per train step (synchronised): "
+             + ", ".join(f"{t:.3f}" for t in tr.step_s)
+             + f" (the second under the profiler); s per epoch "
+             f"{tr.epoch_s}; warm train epoch: card "
+             f"busy {busy / 1e3:.3f} s of {wall / 1e3:.3f} s "
+             f"({100 * busy / wall:.1f}%); peak memory {peak:.2f} GiB; "
+             f"labels {n_labels} written by the "
+             f"{'native host ops' if labels_native else 'NUMPY FALLBACK'}; "
+             f"{len(resized)} resized images cached; prediction figures "
+             f"{'drawn' if have_matplotlib() else 'skipped (no matplotlib)'}; "
+             f"losses finite {finite}, epoch totals {epochs} "
+             f"{'ok' if good else 'FAILED'} [{card}]")
+        ok &= good
+
+        # one more warm train step, outside the profiler
+        batch = next(iter(loaders[0]))
+        tr.train_step(tr._batch(batch), tr.generator)
+        _say(f"from disk: one more warm train step, not profiled: "
+             f"{tr.step_s[-1]:.3f} s; its batch loaded in "
+             f"{loaders[0].passes[-1][0]:.3f} s [{card}]")
+        del tr, batch
+        gc.collect()        # the timed step's closure holds the trainer
+        torch.cuda.empty_cache()
+
+        # (b) scripts/eval.py's main over the val split
+        t0 = time.perf_counter()
+        means = eval_script.main(["--data_dir", os.path.join(root, "data"),
+                                  "--checkpoint",
+                                  os.path.join(log_dir, "val_best.pth"),
+                                  "--out_dir", os.path.join(root, "eval"),
+                                  *DISK_ARGS, *dev_arg])
+        eval_s = time.perf_counter() - t0
+        rows = open(os.path.join(root, "eval", "losses.csv")).read().split()
+        good = (len(rows) == 3 and bool(means)
+                and all(np.isfinite(list(means.values()))))
+        _say(f"from disk eval (scripts/eval.py main, bsz 1, the 2 val "
+             f"samples): {means} in {eval_s:.1f} s, {len(rows) - 1} rows "
+             f"{'ok' if good else 'FAILED'}")
+        ok &= good
+
+        # (c) scripts/run.py's main from the trained checkpoint: the
+        # checkpoint loads strictly into MonoForce, one tick at full width
+        ckpt = os.path.join(log_dir, "train_best.pth")
+        cfg = PhysicsConfig(robot="tradr")     # scripts/run.py's default
+        robot = RobotModel.from_config(cfg, device=dev)
+        mode = fast.planner_kernel_mode(robot, cfg.n_sim_trajs,
+                                        uniform_friction=False)
+        P = robot.points.shape[0]
+        for w in WRAPPERS.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        terrain, plan = run_script.main(
+            ["--seq_dir", seq, "--checkpoint", ckpt, "--out",
+             os.path.join(root, "run.png"), *DISK_ARGS, *dev_arg])
+        run_s = time.perf_counter() - t0
+        counts = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
+        for n, v in counts.items():
+            launches[entry(n, P)] = launches.get(entry(n, P), 0) + v
+        want = DISK_RUN_LAUNCHES
+        finite = (all(bool(torch.isfinite(v).all()) for v in terrain.values())
+                  and bool(torch.isfinite(plan.costs).all()))
+        # the card's machine may lack matplotlib: then no figure is drawn
+        drawn = os.path.exists(os.path.join(root, "run.png"))
+        good = (mode == DISK_RUN_MODE and counts == want and finite
+                and drawn == have_matplotlib())
+        _say(f"from disk run (scripts/run.py main --seq_dir --checkpoint "
+             f"train_best.pth: 4 x {LSSConfig().data_aug_conf['final_dim']}, "
+             f"tradr P={P}, {cfg.n_sim_trajs} x {cfg.n_sim_steps}, mode "
+             f"{mode}"
+             + ("" if mode == DISK_RUN_MODE else f" WRONG, want {DISK_RUN_MODE}")
+             + f"): launches {counts} "
+             f"{'ok' if counts == want else 'WRONG, want ' + str(want)}; best "
+             f"path {int(plan.best)}, costs finite {finite}; figure drawn "
+             f"{drawn}; {run_s:.1f} s with the reader and the load "
+             f"{'ok' if good else 'FAILED'} [{card}]")
+        ok &= good
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1766,7 +2164,9 @@ def main() -> int:
                       ("train step",
                        lambda: run_train_step(dev, launches, card)),
                       ("navigation",
-                       lambda: run_navigation(dev, launches, card))):
+                       lambda: run_navigation(dev, launches, card)),
+                      ("from disk",
+                       lambda: run_from_disk(dev, launches, card))):
         t1 = time.perf_counter()
         good = fn()
         _say(f"phase {phase}: {'ok' if good else 'FAILED'} in "

@@ -6,8 +6,9 @@ nothing of it and no JAX.  Its layout mirrors the JAX package's, so each
 module's counterpart has the same path.  Ported so far: the shooting
 planner's serving path in every mode, the differentiable rollout and
 terrain fitting through it, the LSS terrain encoder and the online tick
-(images to the best path), the exact engine and training, and navigation
-(the closed loop plan -> select -> follow -> simulate) with its geometry.
+(images to the best path), the exact engine and training, navigation
+(the closed loop plan -> select -> follow -> simulate) with its geometry,
+and the host side with the entry points (from files on disk).
 
 - ``monoforce_tpu_torch.config``   -- ``PhysicsConfig``, ``LSSConfig`` (own
   copies).
@@ -27,6 +28,12 @@ terrain fitting through it, the LSS terrain encoder and the online tick
   (``LiftSplatShoot``, reference module and state_dict names).
 - ``monoforce_tpu_torch.pipeline`` -- ``MonoForce``: images -> terrain ->
   sampled rollouts -> best path.
+- ``monoforce_tpu_torch.datasets`` -- the ROUGH sequence reader (numpy and
+  PIL, as the JAX package's); ``.native`` -- the C++ host ops that
+  rasterize its labels; ``.utils`` -- the split and the loaders, YAML and
+  calibration IO, timing and profiling on the card.
+- ``monoforce_tpu_torch.scripts`` -- ``run``, ``train``, ``eval`` and
+  ``explore_data``: ``python -m monoforce_tpu_torch.scripts.<name>``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -46,7 +46,18 @@ from monoforce_tpu_torch.physics.engine import (RigidState, RobotModel,
                                                 auto_remat_segment, rollout)
 
 __all__ = ["Trainer", "make_train_step", "make_optimizer", "avg_pool_grid",
-           "compute_losses", "zero_non_finite", "clip_by_global_norm_"]
+           "compute_losses", "zero_non_finite", "clip_by_global_norm_",
+           "read_state_dict"]
+
+
+def read_state_dict(path: str) -> dict:
+    """The encoder's state_dict from a checkpoint file: a ``.pth``/``.pt``
+    state_dict (the ``Trainer``'s, or a reference checkpoint under the same
+    names) or a ``full`` checkpoint's ``model`` entry."""
+    stored = torch.load(path, map_location="cpu")
+    if isinstance(stored, dict) and isinstance(stored.get("model"), dict):
+        return stored["model"]
+    return stored
 
 
 def zero_non_finite(grads):
@@ -281,10 +292,7 @@ class Trainer:
         dict-update ``from_pretrained``, lss.py:293-302).  Takes a
         ``.pth``/``.pt`` state_dict, or a ``full`` checkpoint's model.
         Returns the state_dict."""
-        stored = torch.load(path, map_location="cpu")
-        if isinstance(stored.get("model"), dict):
-            stored = stored["model"]
-        merged = _overlay(self.model.state_dict(), stored)
+        merged = _overlay(self.model.state_dict(), read_state_dict(path))
         self.model.load_state_dict(merged)
         return self.model.state_dict()
 

@@ -1,25 +1,25 @@
 """Matplotlib figures of training and evaluation (headless-friendly).
 
-Port of ``monoforce_tpu/vis.py``'s ``plot_terrain_with_trajs`` (:25-57),
-``plot_rollout_3d`` (:60-79), ``save_prediction_figure`` (:82-108),
-``save_eval_figure`` (:148-210) and ``animate_rollout`` (:212-272; the
-reference's mayavi animation, dphysics.py:607-669), with an own copy of
-``monoforce_tpu/datasets/augment.py::denormalize_img``; reference: the
-trainer's prediction figure (train.py:248-357) and the evaluator's panel
-(eval.py:159-265).  matplotlib is imported when a figure is drawn, never
-when the module is.  Tensors on any device are accepted.
+Port of ``monoforce_tpu/vis.py``, whole: ``plot_terrain_with_trajs``
+(:25-57), ``plot_rollout_3d`` (:60-79), ``save_prediction_figure``
+(:82-108), ``explore_sample`` (:110-145), ``save_eval_figure`` (:148-210)
+and ``animate_rollout`` (:212-272; the reference's mayavi animation,
+dphysics.py:607-669), with ``denormalize_img`` from ``datasets.augment``;
+reference: the trainer's prediction figure (train.py:248-357), the dataset
+explorer (utils.py:191-297) and the evaluator's panel (eval.py:159-265).
+matplotlib is imported when a figure is drawn, never when the module is.
+Tensors on any device are accepted.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["plot_terrain_with_trajs", "plot_rollout_3d",
-           "save_prediction_figure", "save_eval_figure", "animate_rollout",
-           "denormalize_img", "IMG_MEAN", "IMG_STD"]
+from monoforce_tpu_torch.datasets.augment import denormalize_img
 
-IMG_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
-IMG_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
+__all__ = ["plot_terrain_with_trajs", "plot_rollout_3d",
+           "save_prediction_figure", "explore_sample", "save_eval_figure",
+           "animate_rollout"]
 
 
 def _mpl():
@@ -34,12 +34,6 @@ def _np(x) -> np.ndarray:
     if hasattr(x, "detach"):
         return x.detach().float().cpu().numpy()
     return np.asarray(x)
-
-
-def denormalize_img(chw) -> np.ndarray:
-    """(3, H, W) normalized -> (H, W, 3) uint8."""
-    arr = _np(chw)[:3].transpose(1, 2, 0) * IMG_STD + IMG_MEAN
-    return (np.clip(arr, 0, 1) * 255).astype(np.uint8)
 
 
 def plot_terrain_with_trajs(z_grid, trajs, costs=None, d_max: float = 6.4,
@@ -128,6 +122,44 @@ def save_prediction_figure(terrain: dict, hm_geom, hm_terrain, xs_pred, xs_gt,
     ax.legend()
     ax.grid()
     fig.savefig(path, dpi=120, bbox_inches="tight")
+    plt.close(fig)
+    return path
+
+
+def explore_sample(sample, d_max: float = 6.4, path: str = "sample.png"):
+    """Dataset-sample explorer (reference: utils.py:191-297 explore_data):
+    camera images, geom/terrain heightmap labels and the GT trajectory in
+    one figure.  ``sample`` is the 16-tuple from ROUGH.get_sample."""
+    plt = _mpl()
+    (imgs, rots, trans, intrins, post_rots, post_trans,
+     hm_geom, hm_terrain, control_ts, controls, pose0,
+     traj_ts, Xs, Xds, Rs, Omegas) = sample
+
+    n_cams = len(imgs)
+    fig, axes = plt.subplots(2, max(n_cams, 3), figsize=(4 * max(n_cams, 3), 8))
+    for i in range(n_cams):
+        axes[0, i].imshow(denormalize_img(_np(imgs[i])))
+        axes[0, i].set_title(f"camera {i}")
+        axes[0, i].axis("off")
+    for i in range(n_cams, axes.shape[1]):
+        axes[0, i].axis("off")
+
+    Xs = _np(Xs)
+    for j, (title, hm) in enumerate([("geom label", hm_geom),
+                                     ("terrain label", hm_terrain)]):
+        ax = axes[1, j]
+        im = ax.imshow(_np(hm)[0].T, origin="lower", cmap="jet",
+                       extent=(-d_max, d_max, -d_max, d_max))
+        ax.plot(Xs[:, 0], Xs[:, 1], "k-", lw=2)
+        ax.set_title(title)
+        fig.colorbar(im, ax=ax, shrink=0.7)
+    ax = axes[1, 2]
+    ax.plot(_np(traj_ts), Xs[:, 2], "k-")
+    ax.set_title("trajectory z(t)")
+    ax.grid()
+    for i in range(3, axes.shape[1]):
+        axes[1, i].axis("off")
+    fig.savefig(path, dpi=110, bbox_inches="tight")
     plt.close(fig)
     return path
 

@@ -32,7 +32,9 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "monoforce_tpu"
              or m.startswith("monoforce_tpu."))
-print(json.dumps({"imported": names, "bad": bad}))
+built = (bool(sys.modules["monoforce_tpu_torch.native"]._state)
+         or bool(sys.modules["monoforce_tpu_torch.ops._build"]._libs))
+print(json.dumps({"imported": names, "bad": bad, "built": built}))
 """
 
 
@@ -42,6 +44,7 @@ def test_port_and_chip_smoke_import_no_jax():
         cwd=REPO, capture_output=True, text=True, timeout=300, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
+    assert res["built"] is False     # nothing is built or loaded at import
     for mod in ("monoforce_tpu_torch.physics.fast",
                 "monoforce_tpu_torch.planner.shooting",
                 "monoforce_tpu_torch.ops.fk_step_cuda",
@@ -60,7 +63,23 @@ def test_port_and_chip_smoke_import_no_jax():
                 "monoforce_tpu_torch.planner.navigator",
                 "monoforce_tpu_torch.planner.controller",
                 "monoforce_tpu_torch.transformations",
-                "monoforce_tpu_torch.ops.heightmap"):
+                "monoforce_tpu_torch.ops.heightmap",
+                "monoforce_tpu_torch.utils.io",
+                "monoforce_tpu_torch.utils.misc",
+                "monoforce_tpu_torch.utils.data",
+                "monoforce_tpu_torch.utils.locking",
+                "monoforce_tpu_torch.utils.timing",
+                "monoforce_tpu_torch.utils.profiling",
+                "monoforce_tpu_torch.datasets.wildscenes",
+                "monoforce_tpu_torch.datasets.coco",
+                "monoforce_tpu_torch.datasets.camera",
+                "monoforce_tpu_torch.datasets.augment",
+                "monoforce_tpu_torch.datasets.rough",
+                "monoforce_tpu_torch.native",
+                "monoforce_tpu_torch.scripts.run",
+                "monoforce_tpu_torch.scripts.train",
+                "monoforce_tpu_torch.scripts.eval",
+                "monoforce_tpu_torch.scripts.explore_data"):
         assert mod in res["imported"]
 
 
