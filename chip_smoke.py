@@ -11,16 +11,19 @@ Phases (any failure exits non-zero before the last line is printed):
 2. kernels -- call each kernel's wrapper at the main path's shapes (B=4096,
    and B=4094 for two; P=62, 148 and 202; the planner tick's B=64 for its
    two step formats, muq and pairmu; the terrain fit's B=16, P=97 for the
-   two lookup kernels; the navigation simulator's B=1, P=62 for fk_interp)
-   on windows cut by the port's extractors from a
+   two lookup kernels; the navigation simulator's B=1, P=62 for fk_interp;
+   the entry points' B=8, P=97: fk_interp_bwd on the 128 x 128 grid and
+   both lookup kernels on 32 x 32 at 0.4 m; the inference example's marv
+   tick, B=32, P=107: muq and fk_interp) on windows cut by the port's
+   extractors from a
    seeded rough terrain, and hold it against its plain PyTorch version on
    the same inputs; print the largest difference, the tolerance, the
    kernel's mean device time from the profiler's trace with L2 flushed and
    with its inputs in L2, the median time of a wrapper call and of the
    plain version between CUDA events, and the bound; beside the lookup
    rows, the window words the taps touch and the 32-byte sectors that hold
-   them; beside the B=64, B=16 and B=1 rows, one launch's floor (a one-element
-   ``add_`` in the same kind of trace).  Then the JAX tests' accuracy
+   them; beside the B=64, B=32, B=16, B=8 and B=1 rows, one launch's
+   floor (a one-element ``add_`` in the same kind of trace).  Then the JAX tests' accuracy
    oracles (tests/test_fast.py:304-443) on the kernels, at those tests'
    inputs: packed and pair3 against exact, muq against pair3.  That check
    is the path of the two kernels that serve only as oracles (fk_step,
@@ -36,13 +39,14 @@ Phases (any failure exits non-zero before the last line is printed):
    its positions must agree with the same rollout through the plain
    versions on the card.  The packed and pair3_muq runs are also held
    against fast_rollout (tests/test_fast.py:253-266's gate: positions and
-   the ranking of both costs).  Prints ms per batch (median, synchronised)
-   and, from one profiled call, the card's busy time and the named
-   kernel's device time per launch.
+   the ranking of both costs).  Prints ms per batch (median of 5 planner
+   calls or of 10 rollouts, synchronised) and, from one profiled call, the
+   card's busy time and the named kernel's device time per launch.
 4. training -- ``fit_terrain`` at bench_all.py's shape (tradr, 16 x 100
-   steps) on ground truth from fast_rollout over bench_all's hill, 50 Adam
-   iterations (bench_all.py runs 100; cut to keep the script within half
-   its time limit).  The loss must drop 10x; each iteration must launch
+   steps) on ground truth from fast_rollout over bench_all's hill, 20 Adam
+   iterations (bench_all.py runs 100; cut to keep the whole script under
+   700 s: with 50 here and 20 in phase 7's exact fit it took 721 s on an
+   H100 whose host ran slow, with 30 here 708 s).  The loss must drop 10x; each iteration must launch
    fk_interp and its backward kernel 101 times each; the first three
    losses must agree with the same fit through the plain versions.  Prints
    seconds per iteration and the card's busy share.
@@ -81,8 +85,9 @@ Phases (any failure exits non-zero before the last line is printed):
    TF32 off) on both, losses, gradients and parameters held; the
    ``Evaluator`` on a B=24 batch (finite) and at B=2 against the CPU; and
    ``fit_terrain``'s exact branch for marv at bench_all's fit shape
-   (16 x 100, the 128 x 128 hill, 20 iterations): the loss falls and its
-   first three losses agree with the same fit on the CPU.
+   (16 x 100, the 128 x 128 hill, 10 iterations, cut from 20 as phase 4
+   was): the loss falls and its first three losses agree with the same fit
+   on the CPU.
 8. navigation -- ``navigate`` at scripts/navigate.py's full width:
    ``PhysicsConfig.for_planner("tradr")`` on its hill (bench.py's gaussian
    hill) with waypoints (2, -1.5) and (4, 0.5), 64 trajectories x 2 s
@@ -121,7 +126,36 @@ Phases (any failure exits non-zero before the last line is printed):
    cold and warm (timed alone), seconds per train step, the card's busy
    share over the warm epoch, the peak memory and the bytes per PNG; the
    losses must be finite.  The sequence is removed afterwards.
-10. one JSON line listing every kernel with its launches on the main path,
+10. entry points -- the remaining scripts and the examples through their
+   ``main(argv)``, each at its full width, its launch counts set to 0
+   before it and read after it, from a temporary directory under runs/:
+   ``scripts/fit_terrain.py`` at its defaults (tradr at 0.4 m, 8 x 300
+   steps: the exact branch with remat segments, no kernel), 3 of its 100
+   iterations, the loss falling; the same at ``--traj_sim_time 2.0``
+   (8 x 200: the fast branch), 5 iterations, fk_interp and its backward
+   201 times each an iteration, the first three losses against the plain
+   versions; ``robot_control motion`` (marv, flippers moving, exact
+   engine: finite) and ``shoot`` (64 x 500 fast_rollout: 501 fk_interp a
+   call, costs finite, the best of 5 synchronised calls printed);
+   ``navigate --terrain ridge`` (phase 8's launch rule); the
+   ``diff_physics`` example (exact 64 x 500, fast_rollout 64 x 500, then
+   the terrain gradient over 8 x 500: 501 launches of each lookup kernel,
+   held against the plain versions' gradient within 1e-3 of its largest
+   entry); ``train_friction_head``, 5 of its 30 iterations, its initial
+   head alive (mean friction above 0: a dead ReLU head gives a constant
+   loss on both devices), its loss falling and its first three losses
+   against the same run on the CPU from the same initial parameters; on a 2-frame synthetic ROUGH sequence at the real sizes
+   (phase 9's writer), ``inference_with_rough_data`` (default
+   ``LSSConfig``, marv, 32 trajectories: mode pair3_muq, fk_step_muq 500
+   times and fk_interp once, heads finite) and ``explore_data``, then
+   ``rgbd_data`` (its synthetic frame) and ``explore_robot_contacts``.
+   Each run's seconds and the last line of its output are printed; the
+   sequence is removed afterwards.  Phase 2 holds the kernels at these
+   paths' shapes too: the lookup kernels at B=8, P=97 on the 128 x 128
+   grid (the diff_physics gradient) and on 32 x 32 at 0.4 m (the fit
+   script's fast branch); fk_step_muq and fk_interp at marv's B=32,
+   P=107 (the inference example's tick).
+11. one JSON line listing every kernel with its launches on the main path,
    its largest difference from the plain version, its time, the plain
    version's time and its bound on this card.
 
@@ -135,9 +169,9 @@ import copy
 import functools
 import gc
 import glob
+import io
 import json
 import os
-import shutil
 import statistics
 import subprocess
 import sys
@@ -163,7 +197,16 @@ from monoforce_tpu_torch.ops.heightmap import (estimate_heightmap,
                                                local_heightmap)
 from monoforce_tpu_torch.pipeline import MonoForce
 from monoforce_tpu_torch.planner import navigator
+from monoforce_tpu_torch.examples import diff_physics
+from monoforce_tpu_torch.examples import explore_data as explore_example
+from monoforce_tpu_torch.examples import (explore_robot_contacts,
+                                          inference_with_rough_data,
+                                          rgbd_data, train_friction_head)
+from monoforce_tpu_torch.physics.controls import generate_controls
 from monoforce_tpu_torch.scripts import eval as eval_script
+from monoforce_tpu_torch.scripts import fit_terrain as fit_script
+from monoforce_tpu_torch.scripts import navigate as navigate_script
+from monoforce_tpu_torch.scripts import robot_control
 from monoforce_tpu_torch.scripts import run as run_script
 from monoforce_tpu_torch.scripts import train as train_script
 from monoforce_tpu_torch.scripts._common import have_matplotlib
@@ -309,7 +352,7 @@ TRAIN_SEED = 0
 # bench_all.py:193-243's batch and the timed steps after one warm-up; the
 # exact-branch fit's trajectories, steps and iterations (bench_all.py:101-132)
 TRAIN_B, TRAIN_STEPS = 24, 5
-EXACT_FIT = (16, 100, 20)
+EXACT_FIT = (16, 100, 10)
 # navigation: scripts/navigate.py's defaults (64 trajectories, 2 s plans,
 # replans every 0.5 s, 10 Hz ticks, 40 s, force variance; its hill is
 # gaussian_hill); each tick's simulator launches fk_interp for its settle
@@ -349,6 +392,30 @@ DISK_LIDAR_Z = 0.6
 # the friction head is mode pair3_muq, 500 step launches and one lookup
 DISK_RUN_MODE = "pair3_muq"
 DISK_RUN_LAUNCHES = {"fk_step_muq": 500, "fk_interp": 1}
+# the entry points: scripts/fit_terrain.py's iterations at its defaults (the
+# exact branch) and at 2 s (the fast branch: each iteration launches both
+# lookup kernels once a step and once more, the settle); robot_control
+# shoot's fast_rollout (fk_interp once a step and once more) in its warm-up
+# and each timed repetition; the friction head's iterations on the card
+# (of its 30) and its first three losses against the CPU (as the
+# exact-branch fit's; a live head's read 6.4e-7 on an H100), from a live
+# head, falling; the ROUGH examples' sequence (phase 9's writer);
+# inference_with_rough_data's mode: marv's 0.11 m cloud (P=107) at 32
+# trajectories with the friction head.  The diff_physics gradient against
+# the plain versions' gradient on the card: within DIFF_GRAD_RTOL of its
+# largest entry, the bound tests/test_torch_examples.py holds the port's
+# gradient to against the JAX package's (500 steps of BPTT compound the
+# kernels' per-launch differences, ~1e-5 in fk_interp_bwd: 2.7e-4 of 1.56
+# measured on an H100), printed beside the plain versions' own difference
+# between the card and the CPU
+ENTRY_FIT_ITERS = {"exact": 3, "fast": 5}
+ENTRY_FAST_STEPS = 200          # 2 s at 0.01 s
+DIFF_GRAD_RTOL = 1e-3
+HEAD_ITERS = 5
+HEAD_LOSS_RTOL = 1e-3
+ENTRY_FRAMES = 2
+ENTRY_TICK_MODE = "pair3_muq"
+ENTRY_TICK_LAUNCHES = {"fk_step_muq": 500, "fk_interp": 1}
 
 
 def _say(*parts):
@@ -631,24 +698,32 @@ def check_kernels(dev, results, only=None):
     floor = launch_floor(flush)
     floor_note = (f"; launch floor at this batch: one-element add_ {floor[1]} "
                  f"ms with L2 flushed ({floor[0]} ms with its input in L2)")
-    # (robot, voxel, batch, step formats, lookup kernels); B=64 is the
-    # planner tick's batch in its two step formats, and scripts/run.py's
+    # (robot, voxel, batch, step formats, lookup kernels, grid); B=64 is
+    # the planner tick's batch in its two step formats, and scripts/run.py's
     # tick at its defaults (tradr's 0.11 m cloud: muq and the lookup); then
-    # the terrain fit's shape (the same cloud, B=16) and the navigation
-    # simulator's (the planner preset's 0.15 m cloud, one trajectory)
+    # the terrain fit's shape (the same cloud, B=16), the navigation
+    # simulator's (the planner preset's 0.15 m cloud, one trajectory), the
+    # diff_physics example's gradient (B=8 on the 128 x 128 grid),
+    # scripts/fit_terrain.py's fast branch (B=8 on 32 x 32 at 0.4 m) and
+    # the inference_with_rough_data example's tick (marv's 0.11 m cloud,
+    # P=107, at 32 trajectories: muq and the lookup)
     both = ("fk_interp", "fk_interp_bwd")
-    cases = (("tradr", 0.15, 4096, ("zu", "pairmu"), ()),
+    cases = (("tradr", 0.15, 4096, ("zu", "pairmu"), (), 0.1),
              ("tradr", 0.1, 4096, ("zu", "muq", "pair3", "packed", "exact"),
-              both),
-             ("husky", 0.1, 4096, ("packed",), ()),
-             ("husky", 0.1, 4094, ("packed",), ("fk_interp_bwd",)),
-             ("tradr", 0.1, 64, ("muq",), ()),
-             ("tradr", 0.15, 64, ("pairmu",), ()),
-             ("tradr", 0.11, 64, ("muq",), ("fk_interp",)),
-             ("tradr", 0.11, 16, (), both),
-             ("tradr", 0.15, 1, (), ("fk_interp",)))
-    for robot_name, voxel, B, fmts, interp in cases:
-        cfg = PhysicsConfig(robot=robot_name, mesh_voxel_size=voxel)
+              both, 0.1),
+             ("husky", 0.1, 4096, ("packed",), (), 0.1),
+             ("husky", 0.1, 4094, ("packed",), ("fk_interp_bwd",), 0.1),
+             ("tradr", 0.1, 64, ("muq",), (), 0.1),
+             ("tradr", 0.15, 64, ("pairmu",), (), 0.1),
+             ("tradr", 0.11, 64, ("muq",), ("fk_interp",), 0.1),
+             ("tradr", 0.11, 16, (), both, 0.1),
+             ("tradr", 0.15, 1, (), ("fk_interp",), 0.1),
+             ("tradr", 0.11, 8, (), ("fk_interp_bwd",), 0.1),
+             ("tradr", 0.11, 8, (), both, 0.4),
+             ("marv", 0.11, 32, ("muq",), ("fk_interp",), 0.1))
+    for robot_name, voxel, B, fmts, interp, grid_res in cases:
+        cfg = PhysicsConfig(robot=robot_name, mesh_voxel_size=voxel,
+                            grid_res=grid_res)
         robot = RobotModel.from_config(cfg, device=dev)
         P = robot.points.shape[0]
         z_np = rough_terrain(cfg, rng)
@@ -682,7 +757,7 @@ def check_kernels(dev, results, only=None):
                 lambda a=args, k=WRAPPERS[name]: k(*a),
                 lambda a=args, f=fmt: fk_step_cuda.fk_step_plain(f, *a),
                 nbytes, B * P * STEP_FLOPS_PER_POINT[fmt], TOL["step"], flush,
-                P, results, note=floor_note if B == 64 else "")
+                P, results, note=floor_note if B in (32, 64) else "")
         if not interp:
             continue
         sxy0, patch0 = fast._extract_windows(z, fr, wx, wy, d_max, res)
@@ -692,11 +767,13 @@ def check_kernels(dev, results, only=None):
             reciprocal=False)
         queries = sum(a.numel() for a in args[1:])
         # the gather's granularity: the bound counts the tapped words, the
-        # card moves the 32-byte sectors that hold them; the fit's batch
-        # (B=16) is one launch's latency, beside the floor
-        note = (f"; window: {words} tapped words in {sectors} 32-byte "
-                f"sectors ({32 * sectors} bytes, the bound counts "
-                f"{4 * words})" + (floor_note if B in (1, 16) else ""))
+        # card moves the 32-byte sectors that hold them; the small batches
+        # (the fits' B=16 and B=8, the simulator's B=1) are one launch's
+        # latency, beside the floor
+        note = (f"; grid {tuple(cfg.grid_shape)} at {grid_res} m; window: "
+                f"{words} tapped words in {sectors} 32-byte sectors "
+                f"({32 * sectors} bytes, the bound counts {4 * words})"
+                + (floor_note if B in (1, 8, 16, 32) else ""))
         if only is not None:
             interp = [k for k in interp if k in only]
         if "fk_interp" in interp:
@@ -706,7 +783,8 @@ def check_kernels(dev, results, only=None):
                 lambda: interp_cuda.fk_interp_plain(*args),
                 4 * (words + queries + 5 * B * P),
                 B * P * INTERP_FLOPS_PER_POINT, TOL["fk_interp"], flush, P,
-                results, note=note, words=words, sectors=sectors)
+                results, note=note, words=words, sectors=sectors,
+                grid_res=grid_res)
         g = torch.from_numpy(rng.normal(size=(B, 5 * P)).astype(
             np.float32)).to(dev)
         if "fk_interp_bwd" not in interp:
@@ -719,7 +797,8 @@ def check_kernels(dev, results, only=None):
             lambda: interp_cuda.fk_interp_bwd_plain(*args, g),
             4 * (words + queries + g.numel() + 512 * B + 2 * B * P),
             B * P * INTERP_BWD_FLOPS_PER_POINT, TOL["fk_interp_bwd"], flush,
-            P, results, note=note, words=words, sectors=sectors)
+            P, results, note=note, words=words, sectors=sectors,
+            grid_res=grid_res)
     return ok
 
 
@@ -908,15 +987,15 @@ def run_main_path(dev, launches):
 
 def run_fit(dev, launches):
     """Phase 4: fit_terrain at bench_all.py's shape (bench_all.py:101-132):
-    tradr (P=97), the 128 x 128 grid, 16 trajectories x 100 steps, 50
-    iterations (bench_all's 100, halved), ground truth from fast_rollout on
+    tradr (P=97), the 128 x 128 grid, 16 trajectories x 100 steps, 20
+    iterations (of bench_all's 100), ground truth from fast_rollout on
     bench_all's hill."""
     cfg = PhysicsConfig(robot="tradr")
     robot = RobotModel.from_config(cfg, device=dev)
     gx, gy = cfg.grid_coords()
     z_gt = torch.from_numpy((0.3 * np.exp(-((gx - 1.5) ** 2 + gy ** 2) / 2.0))
                             .astype(np.float32)).to(dev)
-    B, N, iters = 16, 100, 50
+    B, N, iters = 16, 100, 20
     rng = np.random.default_rng(0)
     controls = torch.from_numpy(rng.uniform(-1, 1, (B, N, 2)).astype(
         np.float32)).to(dev)
@@ -1437,7 +1516,7 @@ def compare_train_step(dev, lss, dphys, batch, log_dir):
 def run_exact_fit(dev):
     """fit_terrain's exact branch: marv at bench_all.py:101-132's shape
     (16 x 100, the 128 x 128 hill), ground truth from the port's exact
-    rollout, 20 iterations on the card, 3 on the CPU."""
+    rollout, 10 iterations on the card, 3 on the CPU."""
     B, N, iters = EXACT_FIT
     cfg = PhysicsConfig(robot="marv")
     robot = RobotModel.from_config(cfg, device=dev)
@@ -2133,6 +2212,228 @@ def run_from_disk(dev, launches, card):
     return ok
 
 
+def _run_entry(fn, launches):
+    """``fn()`` with every launch count at 0 before it and its standard
+    output caught: (its result, {kernel: launches} of this run, seconds to
+    the card's last kernel, its output's lines).  The counts are added to
+    ``launches`` (no step format of the zu entries runs here)."""
+    for w in WRAPPERS.values():
+        w.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
+    for n, v in counts.items():
+        launches[n] = launches.get(n, 0) + v
+    return out, counts, secs, buf.getvalue().strip().splitlines()
+
+
+def _quiet(fn):
+    """``fn()`` with its standard output dropped (a reference run)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn()
+
+
+def _finite(*tensors) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def run_entry_points(dev, launches, card):
+    """Phase 10: the remaining entry points through their main(argv), at
+    full width, from a temporary directory under the git-ignored runs/."""
+    ok = True
+    t_phase = time.perf_counter()
+    dev_arg = ["--device", str(dev)]
+    os.makedirs(os.path.join(REPO, "runs"), exist_ok=True)
+
+    def say(name, good, secs, text, lines):
+        _say(f"entry {name}: {text}; {secs:.1f} s; its output ends: "
+             f"{lines[-1] if lines else '-'} {'ok' if good else 'FAILED'} "
+             f"[{card}]")
+        return good
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "runs")) as root, \
+            contextlib.chdir(root):
+        # (a) scripts/fit_terrain.py at its defaults (8 x 300: the exact
+        # branch with remat segments), depth cut to a few iterations
+        n = ENTRY_FIT_ITERS["exact"]
+        (_, losses), counts, secs, lines = _run_entry(
+            lambda: fit_script.main(["--n_iters", str(n), *dev_arg]),
+            launches)
+        good = counts == {} and np.isfinite(losses).all() and (
+            losses[-1] < losses[0])
+        ok &= say(f"scripts.fit_terrain (defaults: tradr 0.4 m, 8 x 300, "
+                  f"exact branch with remat; {n} of 100 iterations)", good,
+                  secs, f"losses {[round(v, 6) for v in losses]} (falling), "
+                  f"launches {counts} (want none)", lines)
+
+        # (b) the same at 2 s: the fast branch, against the plain versions
+        n = ENTRY_FIT_ITERS["fast"]
+        fast = ["--traj_sim_time", "2.0", *dev_arg]
+        (_, losses), counts, secs, lines = _run_entry(
+            lambda: fit_script.main(["--n_iters", str(n), *fast]), launches)
+        per_iter = ENTRY_FAST_STEPS + 1
+        want = {"fk_interp": n * per_iter, "fk_interp_bwd": n * per_iter}
+        with plain_kernels():
+            _, plain = _quiet(lambda: fit_script.main(["--n_iters", "3",
+                                                       *fast]))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses[:3], plain))
+        good = (counts == want and rel <= FIT_LOSS_RTOL
+                and np.isfinite(losses).all())
+        ok &= say(f"scripts.fit_terrain --traj_sim_time 2.0 (8 x 200, fast "
+                  f"branch; {n} of 100 iterations)", good, secs,
+                  f"launches {counts} "
+                  f"{'ok' if counts == want else 'WRONG, want ' + str(want)}"
+                  f" ({per_iter} of each lookup kernel an iteration); losses "
+                  f"{[round(v, 6) for v in losses]}; first 3 against the "
+                  f"plain versions: rel diff {rel:.2e} (tol "
+                  f"{FIT_LOSS_RTOL:g}); {secs / n:.3f} s an iteration", lines)
+
+        # (c) robot_control motion: marv, flippers moving, exact engine
+        states, counts, secs, lines = _run_entry(
+            lambda: robot_control.main(["motion", *dev_arg]), launches)
+        good = counts == {} and _finite(states.x, states.R)
+        ok &= say("scripts.robot_control motion (marv, 1 x 500, exact "
+                  "engine)", good, secs, f"{tuple(states.x.shape)} finite "
+                  f"{_finite(states.x, states.R)}, final position "
+                  f"{[round(float(v), 4) for v in states.x[0, -1]]}, "
+                  f"launches {counts} (want none)", lines)
+
+        # (d) robot_control shoot: 64 x 500 fast_rollout, best of 5
+        (xs, costs, best_s), counts, secs, lines = _run_entry(
+            lambda: robot_control.main(["shoot", *dev_arg]), launches)
+        calls = 1 + 5
+        want = {"fk_interp": calls * 501}
+        good = counts == want and _finite(xs, costs)
+        ok &= say("scripts.robot_control shoot (tradr P=97, 64 x 500 "
+                  "fast_rollout on the hill, a warm-up and best of 5)", good,
+                  secs, f"launches {counts} "
+                  f"{'ok' if counts == want else 'WRONG, want ' + str(want)}"
+                  f" (501 a call); costs finite {_finite(costs)}, best "
+                  f"{int(torch.argmin(costs))}; best of 5 "
+                  f"{best_s * 1e3:.3f} ms a call (synchronised)", lines)
+
+        # (e) scripts/navigate.py on the ridge (its hill is phase 8's)
+        res, counts, secs, lines = _run_entry(
+            lambda: navigate_script.main(["--terrain", "ridge", *dev_arg]),
+            launches)
+        good_counts, want = nav_launches(
+            res, {k: counts.get(k, 0) for k in WRAPPERS},
+            int(NAV["plan_horizon"] / PhysicsConfig.for_planner("tradr").dt))
+        good = good_counts and np.isfinite(res.positions).all()
+        ok &= say("scripts.navigate --terrain ridge (64 x 200 a replan, "
+                  "10 Hz ticks)", good, secs,
+                  f"{'reached' if res.reached else 'TIMED OUT'} at t="
+                  f"{res.times[-1]:.1f} s, {len(res.times)} ticks, "
+                  f"{len(res.plans)} replans; launches {counts} "
+                  f"{'ok' if good_counts else 'WRONG, want ' + str(want)}",
+                  lines)
+
+        # (f) examples.diff_physics: the gradient against the plain versions
+        out, counts, secs, lines = _run_entry(
+            lambda: diff_physics.main(dev_arg), launches)
+        cfg = PhysicsConfig(robot="tradr")
+        robot = RobotModel.from_config(cfg, device=dev)
+        z = torch.from_numpy(diff_physics.hill(cfg)).to(dev)
+        controls, _ = generate_controls(
+            torch.Generator(device=dev).manual_seed(0), n_trajs=64,
+            time_horizon=5.0, dt=cfg.dt)
+        with plain_kernels():
+            g_plain = diff_physics.terrain_gradient(robot, z, controls[:8])
+        g_max = float(g_plain.abs().max())
+        g_err = float((out["grad"] - g_plain).abs().max())
+        g_ok = g_err <= DIFF_GRAD_RTOL * g_max and _finite(out["grad"])
+        g_cpu = diff_physics.terrain_gradient(
+            RobotModel.from_config(cfg, device="cpu"), z.cpu(),
+            controls[:8].cpu())
+        cpu_err = float((g_plain.cpu() - g_cpu).abs().max())
+        want = {"fk_interp": 2 * 501, "fk_interp_bwd": 501}
+        good = (counts == want and g_ok
+                and _finite(out["states"].x, out["fstates"].x, out["costs"]))
+        ok &= say("examples.diff_physics (tradr P=97, 128 x 128: exact 64 x "
+                  "500, fast_rollout 64 x 500, the gradient over 8 x 500)",
+                  good, secs, f"launches {counts} "
+                  f"{'ok' if counts == want else 'WRONG, want ' + str(want)}"
+                  f" (the fast path 501 fk_interp, the gradient 501 of "
+                  f"each); the gradient against the plain versions' max "
+                  f"diff {g_err:.3e} (tol {DIFF_GRAD_RTOL:g} of the largest "
+                  f"entry {g_max:.3e}; the plain versions on the card "
+                  f"against the CPU: {cpu_err:.3e}), "
+                  f"{int((out['grad'].abs() > 0).sum())} nonzero cells; fast "
+                  f"path {out['fast_s']:.3f} s", lines)
+
+        # (g) examples.train_friction_head, depth cut, against the CPU
+        (_, losses), counts, secs, lines = _run_entry(
+            lambda: train_friction_head.main(["--n_iters", str(HEAD_ITERS),
+                                              *dev_arg]), launches)
+        head = train_friction_head.FrictionHead().init_weights(0)
+        cfg = train_friction_head.config()
+        with torch.no_grad():
+            fr0 = float(head(train_friction_head.features(cfg, "cpu")).mean())
+        cpu = _quiet(lambda: train_friction_head.train(head, cfg, "cpu",
+                                                       n_iters=3))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses[:3], cpu))
+        good = (counts == {} and fr0 > 0 and losses[-1] < losses[0]
+                and rel <= HEAD_LOSS_RTOL and np.isfinite(losses).all())
+        ok &= say(f"examples.train_friction_head (tradr 0.4 m, 8 x 200, "
+                  f"exact engine; {HEAD_ITERS} of 30 iterations)", good, secs,
+                  f"initial mean friction {fr0:.4f} (want > 0: the head "
+                  f"alive); losses {[round(v, 7) for v in losses]} (want "
+                  f"falling); first 3 against the CPU from the same initial "
+                  f"parameters: rel diff {rel:.2e} (tol {HEAD_LOSS_RTOL:g}); "
+                  f"launches {counts} (want none)", lines)
+
+        # (h) the ROUGH examples on a short synthetic sequence
+        t0 = time.perf_counter()
+        seq, _ = write_rough_sequence(os.path.join(root, "data"),
+                                      ENTRY_FRAMES, DISK_HW, DISK_POINTS)
+        _say(f"entry: wrote a synthetic ROUGH sequence of {ENTRY_FRAMES} "
+             f"frames ({DISK_HW[0]}x{DISK_HW[1]}, {DISK_POINTS} points) in "
+             f"{time.perf_counter() - t0:.1f} s")
+        (mode, terrain, plan), counts, secs, lines = _run_entry(
+            lambda: inference_with_rough_data.main(
+                ["--sequence", seq, *DISK_ARGS, *dev_arg]), launches)
+        want = ENTRY_TICK_LAUNCHES
+        good = (mode == ENTRY_TICK_MODE and counts == want
+                and _finite(*terrain.values(), plan.costs))
+        ok &= say("examples.inference_with_rough_data (marv P=107, "
+                  f"{LSSConfig().data_aug_conf['final_dim']} x 4 cameras, "
+                  f"32 x 500)", good, secs, f"mode {mode}"
+                  + ("" if mode == ENTRY_TICK_MODE
+                     else f" WRONG, want {ENTRY_TICK_MODE}")
+                  + f"; launches {counts} "
+                  f"{'ok' if counts == want else 'WRONG, want ' + str(want)}"
+                  f"; heads finite {_finite(*terrain.values())}, best path "
+                  f"{int(plan.best)}", lines)
+
+        sample, counts, secs, lines = _run_entry(
+            lambda: explore_example.main(["--sequence", seq, "--index", "1",
+                                          *DISK_ARGS]), launches)
+        good = counts == {} and all(np.isfinite(a).all() for a in sample[:8])
+        ok &= say("examples.explore_data (sample 1)", good, secs,
+                  f"images {sample[0].shape}, labels {sample[7].shape}, "
+                  f"trajectory {sample[12].shape}", lines)
+        cloud, counts, secs, lines = _run_entry(
+            lambda: rgbd_data.main([]), launches)
+        good = counts == {} and len(cloud) > 0 and np.isfinite(cloud).all()
+        ok &= say("examples.rgbd_data (its synthetic frame: the sequence "
+                  "has no luxonis folder)", good, secs,
+                  f"{len(cloud)} points", lines)
+        clouds, counts, secs, lines = _run_entry(
+            lambda: explore_robot_contacts.main([]), launches)
+        good = counts == {} and [len(c[1]) for c in clouds] == [97, 107, 126]
+        ok &= say("examples.explore_robot_contacts (0.11 m)", good, secs,
+                  "; ".join(f"{name} {len(pts)} points, parts "
+                            f"{masks.sum(axis=1).tolist()}"
+                            for name, pts, masks, _ in clouds), lines)
+    _say(f"entry points: {time.perf_counter() - t_phase:.1f} s in all, the "
+         f"sequence removed")
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2166,7 +2467,9 @@ def main() -> int:
                       ("navigation",
                        lambda: run_navigation(dev, launches, card)),
                       ("from disk",
-                       lambda: run_from_disk(dev, launches, card))):
+                       lambda: run_from_disk(dev, launches, card)),
+                      ("entry points",
+                       lambda: run_entry_points(dev, launches, card))):
         t1 = time.perf_counter()
         good = fn()
         _say(f"phase {phase}: {'ok' if good else 'FAILED'} in "

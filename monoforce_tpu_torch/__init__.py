@@ -32,8 +32,11 @@ and the host side with the entry points (from files on disk).
   PIL, as the JAX package's); ``.native`` -- the C++ host ops that
   rasterize its labels; ``.utils`` -- the split and the loaders, YAML and
   calibration IO, timing and profiling on the card.
-- ``monoforce_tpu_torch.scripts`` -- ``run``, ``train``, ``eval`` and
-  ``explore_data``: ``python -m monoforce_tpu_torch.scripts.<name>``.
+- ``monoforce_tpu_torch.scripts`` -- ``run``, ``train``, ``eval``,
+  ``explore_data``, ``fit_terrain``, ``robot_control`` and ``navigate``:
+  ``python -m monoforce_tpu_torch.scripts.<name>``.
+- ``monoforce_tpu_torch.examples`` -- the JAX package's six examples:
+  ``python -m monoforce_tpu_torch.examples.<name>``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -42,11 +45,19 @@ from monoforce_tpu_torch.config import LSSConfig, PhysicsConfig
 
 __version__ = "0.1.0"
 
-__all__ = ["PhysicsConfig", "LSSConfig", "Planner", "MonoForce",
-           "fit_terrain", "__version__"]
+__all__ = ["PhysicsConfig", "LSSConfig", "DPhysics", "LiftSplatShoot",
+           "Planner", "MonoForce", "fit_terrain", "__version__"]
 
 
 def __getattr__(name):
+    # lazy top-level conveniences, as in the JAX package: importing the
+    # package loads only the configs
+    if name == "DPhysics":
+        from monoforce_tpu_torch.physics import DPhysics
+        return DPhysics
+    if name == "LiftSplatShoot":
+        from monoforce_tpu_torch.models import LiftSplatShoot
+        return LiftSplatShoot
     if name == "Planner":
         from monoforce_tpu_torch.planner import Planner
         return Planner

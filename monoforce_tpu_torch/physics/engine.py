@@ -7,7 +7,8 @@ exact engine: ``skew`` (:155), ``integrate_rotation`` (:165),
 ``integration_step`` (:177), ``update_joints`` (:191),
 ``forward_kinematics`` (:213-288), ``_update_state`` (:291), the BPTT
 gradient clip (:302-320), ``rollout`` (:322-393, :508-547),
-``rollout_odeint`` (:395-480) and ``DPhysics`` (:550-597).
+``rollout_single_odeint`` (:395-447), ``rollout_odeint`` (:457-480)
+and ``DPhysics`` (:550-597).
 
 ``RobotModel`` holds the robot's parameter set as float32 tensors on one
 device; scalars are 0-d tensors so that the port's arithmetic runs in
@@ -28,15 +29,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from monoforce_tpu_torch.physics.terrain import interpolate_grid, normalized
 
 __all__ = ["RigidState", "RobotModel", "DPhysics", "rollout",
-           "rollout_single", "rollout_odeint", "inertia_tensor",
-           "integrate_rotation", "forward_kinematics", "on_device",
-           "resolve_device", "auto_remat_segment"]
+           "rollout_single", "rollout_odeint", "rollout_single_odeint",
+           "inertia_tensor", "integrate_rotation", "forward_kinematics",
+           "on_device", "resolve_device", "auto_remat_segment"]
 
 
 def resolve_device(device) -> torch.device:
@@ -482,6 +484,24 @@ def rollout(robot: RobotModel, z_grid, controls, joint_angles=None,
                     return_forces, extras_fn, bptt_grad_clip, remat_segment)
 
 
+def _one(t):
+    """Row 0 of every tensor in a (nested) result: a batch of one unbatched."""
+    if t is None:
+        return None
+    if isinstance(t, torch.Tensor):
+        return t[0]
+    if isinstance(t, dict):
+        return {k: _one(v) for k, v in t.items()}
+    parts = [_one(v) for v in t]
+    return type(t)(*parts) if hasattr(t, "_fields") else type(t)(parts)
+
+
+def _batch1(x):
+    """``x`` with a leading batch axis of one; arrays stay arrays, so that
+    ``on_device`` copies them to the robot's device."""
+    return x[None] if isinstance(x, torch.Tensor) else np.asarray(x)[None]
+
+
 def rollout_single(robot: RobotModel, z_grid, friction, controls,
                    joint_angles, state0: RigidState, return_forces: bool = True,
                    extras_fn: Optional[Callable] = None,
@@ -491,23 +511,11 @@ def rollout_single(robot: RobotModel, z_grid, friction, controls,
     angles, a state with unbatched leaves; :func:`rollout` on a batch of
     one.  Returns (states with (N, ...) leaves, forces | None, extras |
     None)."""
-    def one(t):
-        if t is None:
-            return None
-        if isinstance(t, torch.Tensor):
-            return t[0]
-        if isinstance(t, dict):
-            return {k: one(v) for k, v in t.items()}
-        parts = [one(v) for v in t]
-        return type(t)(*parts) if hasattr(t, "_fields") else type(t)(parts)
-
-    state0 = RigidState(*(torch.as_tensor(v)[None] for v in state0))
     states, forces, extras = rollout(
-        robot, torch.as_tensor(z_grid)[None], torch.as_tensor(controls)[None],
-        torch.as_tensor(joint_angles)[None], state0,
-        torch.as_tensor(friction)[None], return_forces, extras_fn,
-        bptt_grad_clip, remat_segment)
-    return one(states), one(forces), one(extras)
+        robot, _batch1(z_grid), _batch1(controls), _batch1(joint_angles),
+        RigidState(*(_batch1(v) for v in state0)), _batch1(friction),
+        return_forces, extras_fn, bptt_grad_clip, remat_segment)
+    return _one(states), _one(forces), _one(extras)
 
 
 def rollout_odeint(robot: RobotModel, z_grid, controls, joint_angles=None,
@@ -551,6 +559,19 @@ def rollout_odeint(robot: RobotModel, z_grid, controls, joint_angles=None,
     out = [torch.stack(p, dim=1) for p in zip(*rows)]
     states = _equilibrium_offset(robot, RigidState(*out[:4]))
     return states, (out[4], out[5])
+
+
+def rollout_single_odeint(robot: RobotModel, z_grid, friction, controls,
+                          joint_angles, state0: RigidState, dt=None):
+    """Roll ONE trajectory with the reference's default integrator: (H, W)
+    grids, (N, 2) controls, (N, 4) joint angles, a state with unbatched
+    leaves; :func:`rollout_odeint` on a batch of one, with its quirks.
+    Returns (states with (N, ...) leaves, (F_spring_int, F_friction_int)
+    of (N, P, 3))."""
+    states, forces = rollout_odeint(
+        robot, _batch1(z_grid), _batch1(controls), _batch1(joint_angles),
+        RigidState(*(_batch1(v) for v in state0)), _batch1(friction), dt)
+    return _one(states), _one(forces)
 
 
 class DPhysics:

@@ -13,8 +13,9 @@ steps or more (remat segments), take the exact engine
 (:func:`~monoforce_tpu_torch.physics.engine.rollout`, plain PyTorch), as
 in the JAX package (``_loss_fn``, fit_terrain.py:49-72).
 
-PyTorch runs eagerly, so the JAX package's chunked programs become a loop
-of steps whose losses stay on the device and are read back once per
+PyTorch runs eagerly, so the JAX package's chunked program
+(``terrain_fit_chunk``, a ``lax.scan`` over whole steps) becomes a loop of
+steps whose losses stay on the device and are read back once per
 ``device_chunk`` steps: no step waits for the host.
 """
 
@@ -29,8 +30,8 @@ from monoforce_tpu_torch.physics.engine import (RigidState, RobotModel,
                                                 auto_remat_segment, on_device,
                                                 rollout)
 
-__all__ = ["fit_terrain", "terrain_fit_step", "make_optimizer",
-           "TerrainParams"]
+__all__ = ["fit_terrain", "terrain_fit_step", "terrain_fit_chunk",
+           "make_optimizer", "TerrainParams"]
 
 
 class TerrainParams(NamedTuple):
@@ -94,6 +95,23 @@ def terrain_fit_step(params: TerrainParams, opt_state: torch.optim.Adam,
     return params, opt_state, loss.detach()
 
 
+def terrain_fit_chunk(params: TerrainParams, opt_state: torch.optim.Adam,
+                      robot: RobotModel, controls, states_gt, pred_ts, gt_ts,
+                      state0: Optional[RigidState], tv_weight: float,
+                      remat_segment, length: int):
+    """``length`` whole optimization steps; returns (params, opt_state,
+    losses), ``losses`` a (length,) tensor on the device that the caller
+    reads once.  As in :func:`terrain_fit_step`, ``opt_state`` carries the
+    learning rates (no ``optimizer`` argument)."""
+    losses = []
+    for _ in range(length):
+        params, opt_state, loss = terrain_fit_step(
+            params, opt_state, robot, controls, states_gt, pred_ts, gt_ts,
+            state0, tv_weight, remat_segment)
+        losses.append(loss)
+    return params, opt_state, torch.stack(losses)
+
+
 def fit_terrain(cfg, controls, states_gt, pred_ts, gt_ts, state0=None,
                 n_iters: int = 100, lr_z: float = 0.02,
                 lr_friction: float = 0.01, friction_init: float = 0.5,
@@ -127,17 +145,15 @@ def fit_terrain(cfg, controls, states_gt, pred_ts, gt_ts, state0=None,
     states_gt = [on_device(s, dev, "states_gt") for s in states_gt]
     pred_ts = on_device(pred_ts, dev, "pred_ts")
     gt_ts = on_device(gt_ts, dev, "gt_ts")
+    losses = []
     chunk = 1 if verbose else max(device_chunk, 1)
-    losses, pending = [], []
-    for it in range(n_iters):
-        params, opt_state, loss = terrain_fit_step(
+    while len(losses) < n_iters:
+        params, opt_state, chunk_losses = terrain_fit_chunk(
             params, opt_state, robot, controls, states_gt, pred_ts, gt_ts,
-            state0, tv_weight, remat_segment=remat)
-        pending.append(loss)
-        if len(pending) == chunk or it == n_iters - 1:
-            losses.extend(torch.stack(pending).tolist())
-            pending = []
-        if verbose and it % 10 == 0:
-            print(f"iter {it}: loss {losses[-1]:.6f}")
+            state0, tv_weight, remat, min(chunk, n_iters - len(losses)))
+        for loss in chunk_losses.tolist():
+            if verbose and len(losses) % 10 == 0:
+                print(f"iter {len(losses)}: loss {loss:.6f}")
+            losses.append(loss)
     return TerrainParams(params.z_grid.detach(),
                          params.friction.detach()), losses

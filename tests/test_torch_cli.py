@@ -3,9 +3,12 @@
 monoforce_tpu_torch.scripts.{train,run,eval,explore_data} ... --device cpu``
 in subprocesses with their real ``sys.argv``; the ``--img-paths`` inputs
 against the JAX ``scripts/run.py``'s on the same files; and without a card
-every entry point raises unless it is given ``--device cpu``."""
+every entry point that touches a device (the scripts and the examples)
+raises unless it is given ``--device cpu``; the host-only examples take
+no ``--device``."""
 
 import glob
+import importlib
 import importlib.util
 import json
 import os
@@ -19,7 +22,7 @@ import torch
 from fixtures import make_sequence, tiny_lss_cfg
 from monoforce_tpu_torch.config import LSSConfig
 from monoforce_tpu_torch.scripts import eval as eval_script
-from monoforce_tpu_torch.scripts import explore_data, run, train
+from monoforce_tpu_torch.scripts import explore_data, run
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAMS = ("camera_left", "camera_front", "camera_right", "camera_rear")
@@ -186,15 +189,41 @@ def test_figures_without_matplotlib(cli_env, tmp_path, monkeypatch, capsys):
                           "cpu"])
 
 
-@pytest.mark.parametrize("script", ["train", "eval", "run", "explore_data"])
+@pytest.mark.parametrize("script", [
+    "train", "eval", "run", "explore_data", "fit_terrain",
+    "robot_control motion", "robot_control shoot", "navigate",
+    "examples.diff_physics", "examples.train_friction_head",
+    "examples.inference_with_rough_data"])
 def test_entry_points_need_the_card(cli_env, script):
     """Without a card, the default device raises before any work."""
     if torch.cuda.is_available():
         pytest.skip("a card is visible: the default device is usable")
     root, seq, _ = cli_env
-    mod = {"train": train, "eval": eval_script, "run": run,
-           "explore_data": explore_data}[script]
-    argv = (["--data_dir", root] if script in ("train", "eval")
-            else ["--seq_dir", seq])
+    name, *argv = script.split()
+    if name in ("train", "eval"):
+        argv = ["--data_dir", root]
+    elif name in ("run", "explore_data"):
+        argv = ["--seq_dir", seq]
+    elif name == "examples.inference_with_rough_data":
+        argv = ["--sequence", seq]
+    package = "examples" if name.startswith("examples.") else "scripts"
+    mod = importlib.import_module(
+        f"monoforce_tpu_torch.{package}.{name.split('.')[-1]}")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.main(argv)
+
+
+@pytest.mark.parametrize("name", ["explore_data", "explore_robot_contacts",
+                                  "rgbd_data"])
+def test_host_examples_need_no_card(cli_env, tmp_path, name, capsys):
+    """The host-only examples take no ``--device`` and run without a
+    card."""
+    _, seq, cfg_path = cli_env
+    mod = importlib.import_module(f"monoforce_tpu_torch.examples.{name}")
+    argv = ["--out", str(tmp_path / f"{name}.png")]
+    if name == "explore_data":
+        argv += ["--sequence", seq, "--lss_cfg_path", cfg_path]
+    with pytest.raises(SystemExit):
+        mod.main([*argv, "--device", "cpu"])
+    assert "unrecognized arguments: --device" in capsys.readouterr().err
+    assert mod.main(argv) is not None

@@ -637,3 +637,47 @@ def test_estimate_heightmap_on_the_card_matches_cpu(dev):
     torch.testing.assert_close(lm.cpu(), local_heightmap(cpu, pose, 0.1, 6.4,
                                                          2.0),
                                atol=1e-6, rtol=0)
+
+
+# ------------------------------------------------------------ entry points
+
+
+def test_fit_script_fast_branch_launches_the_lookup_kernels(dev, capsys):
+    """scripts/fit_terrain.py under 2.56 s takes the fast branch: both
+    lookup kernels once a step and once more (the settle) an iteration; at
+    its 3 s default the exact engine, no kernel."""
+    from monoforce_tpu_torch.scripts import fit_terrain as fit_script
+
+    for w in WRAPPERS.values():
+        w.launches = 0
+    _, losses = fit_script.main(["--n_iters", "2", "--n_trajs", "2",
+                                 "--traj_sim_time", "0.5"])
+    torch.cuda.synchronize()
+    assert interp_cuda.fk_interp.launches == 2 * 51
+    assert interp_cuda.fk_interp_bwd.launches == 2 * 51
+    assert np.isfinite(losses).all() and "loss:" in capsys.readouterr().out
+
+
+def test_diff_physics_gradient_launches_the_lookup_kernels(dev):
+    """The example's gradient through fast_rollout on the card: N+1
+    launches of each lookup kernel, within 1e-3 of its largest entry of the
+    CPU's plain gradient."""
+    from monoforce_tpu_torch.examples import diff_physics
+
+    cfg = PhysicsConfig(robot="tradr")
+    z = diff_physics.hill(cfg)
+    ctr = np.random.default_rng(2).uniform(-1, 1, (2, 50, 2)).astype(
+        np.float32)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    g = diff_physics.terrain_gradient(RobotModel.from_config(cfg, device=dev),
+                                      torch.from_numpy(z).to(dev),
+                                      torch.from_numpy(ctr).to(dev))
+    torch.cuda.synchronize()
+    assert interp_cuda.fk_interp.launches == 51
+    assert interp_cuda.fk_interp_bwd.launches == 51
+    want = diff_physics.terrain_gradient(
+        RobotModel.from_config(cfg, device="cpu"), torch.from_numpy(z),
+        torch.from_numpy(ctr))
+    err = float((g.cpu() - want).abs().max())
+    assert err <= 1e-3 * float(want.abs().max()), err

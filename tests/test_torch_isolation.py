@@ -79,7 +79,16 @@ def test_port_and_chip_smoke_import_no_jax():
                 "monoforce_tpu_torch.scripts.run",
                 "monoforce_tpu_torch.scripts.train",
                 "monoforce_tpu_torch.scripts.eval",
-                "monoforce_tpu_torch.scripts.explore_data"):
+                "monoforce_tpu_torch.scripts.explore_data",
+                "monoforce_tpu_torch.scripts.fit_terrain",
+                "monoforce_tpu_torch.scripts.robot_control",
+                "monoforce_tpu_torch.scripts.navigate",
+                "monoforce_tpu_torch.examples.diff_physics",
+                "monoforce_tpu_torch.examples.train_friction_head",
+                "monoforce_tpu_torch.examples.inference_with_rough_data",
+                "monoforce_tpu_torch.examples.explore_data",
+                "monoforce_tpu_torch.examples.explore_robot_contacts",
+                "monoforce_tpu_torch.examples.rgbd_data"):
         assert mod in res["imported"]
 
 
