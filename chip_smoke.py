@@ -39,8 +39,8 @@ Phases (any failure exits non-zero before the last line is printed):
    its positions must agree with the same rollout through the plain
    versions on the card.  The packed and pair3_muq runs are also held
    against fast_rollout (tests/test_fast.py:253-266's gate: positions and
-   the ranking of both costs).  Prints ms per batch (median of 5 planner
-   calls or of 10 rollouts, synchronised) and, from one profiled call, the
+   the ranking of both costs).  Prints ms per batch (median of 2 planner
+   calls or of 3 rollouts, synchronised) and, from one profiled call, the
    card's busy time and the named kernel's device time per launch.
 4. training -- ``fit_terrain`` at bench_all.py's shape (tradr, 16 x 100
    steps) on ground truth from fast_rollout over bench_all's hill, 20 Adam
@@ -75,7 +75,7 @@ Phases (any failure exits non-zero before the last line is printed):
    default ``LSSConfig`` (4 x 256 x 416, B0, D=59, camC 64, 128 x 128 at
    0.1 m), tradr at 0.4 m (pool 4), B=24, 100 control steps (remat
    segments of 10), 50 ground-truth poses, lr 1e-3, seeded weights and
-   bench_all's seeded batch.  One warm-up step and 5 timed steps: every
+   bench_all's seeded batch.  One warm-up step and 3 timed steps: every
    loss and parameter finite, the parameters and BN statistics moved.
    Prints the median ms per step, the peak memory, and from profiled
    calls the card's busy time of a step, of its encoder part (a step
@@ -118,8 +118,8 @@ Phases (any failure exits non-zero before the last line is printed):
    reference's production values (``--bsz 24 --terrain_weight 3.0
    --phys_weight 4.0``) for two epochs of one batch each (24 train, 2 val
    samples): the first cold (resize cache and labels written, by the
-   native host ops), the second warm and profiled; one more warm step
-   unprofiled; ``scripts/eval.py``'s ``main`` over the val split; and
+   native host ops), the second warm and profiled;
+   ``scripts/eval.py``'s ``main`` over the val split; and
    ``scripts/run.py``'s ``main`` from the trained checkpoint (loaded
    strictly) at full width, which must launch its mode's step kernel once
    per step and fk_interp once.  Prints the loader's seconds per batch
@@ -136,13 +136,16 @@ Phases (any failure exits non-zero before the last line is printed):
    201 times each an iteration, the first three losses against the plain
    versions; ``robot_control motion`` (marv, flippers moving, exact
    engine: finite) and ``shoot`` (64 x 500 fast_rollout: 501 fk_interp a
-   call, costs finite, the best of 5 synchronised calls printed);
+   call, costs finite, the best of 2 synchronised calls printed);
    ``navigate --terrain ridge`` (phase 8's launch rule); the
    ``diff_physics`` example (exact 64 x 500, fast_rollout 64 x 500, then
    the terrain gradient over 8 x 500: 501 launches of each lookup kernel,
    held against the plain versions' gradient within 1e-3 of its largest
-   entry); ``train_friction_head``, 5 of its 30 iterations, its initial
-   head alive (mean friction above 0: a dead ReLU head gives a constant
+   entry; and at the states of its rollout at steps 0, 100, 250 and 499,
+   one step's VJP through fk_interp_bwd with a seeded cotangent against
+   the plain version at the per-launch tolerance);
+   ``train_friction_head``, 5 of its 30 iterations, its initial head
+   alive (mean friction above 0: a dead ReLU head gives a constant
    loss on both devices), its loss falling and its first three losses
    against the same run on the CPU from the same initial parameters; on a 2-frame synthetic ROUGH sequence at the real sizes
    (phase 9's writer), ``inference_with_rough_data`` (default
@@ -155,7 +158,26 @@ Phases (any failure exits non-zero before the last line is printed):
    grid (the diff_physics gradient) and on 32 x 32 at 0.4 m (the fit
    script's fast branch); fk_step_muq and fk_interp at marv's B=32,
    P=107 (the inference example's tick).
-11. one JSON line listing every kernel with its launches on the main path,
+11. parallel -- ``parallel.sharded_shoot`` on shards of cuda:0, each
+   shard at its local batch: tests/test_parallel.py's shape (tradr's 0.11 m
+   cloud, 128 x 50 over 8 shards of 16, friction None: mode pair3_muq),
+   the planner tick at full width (the planner preset, P=62, with a
+   friction grid, 64 x 500 over 4 shards of 16: pair) and bench.py's 0.1 m
+   line (P=148, 4096 x 100 over 8 shards of 512: pair3_muq), each held
+   against the unsharded planner_rollout on the same inputs (positions
+   RMSE < 5e-5 m, costs within rtol 2e-2, every shard's mode that of its
+   local batch, its launches counted), and against the unsharded call
+   through the plain versions (positions RMSE < 1e-3 m, phase 3's gate);
+   ms per sharded and unsharded call.
+   Then the data-parallel train step of two gloo ranks sharing the card
+   (the tiny-geometry B0, a global batch of 8 with label NaNs uneven
+   between the ranks, SGD 1e-2, TF32 off) against one process's step
+   (parameters and BN statistics within atol 1e-5 rtol 1e-4, the total
+   within rtol 1e-5); ``scripts/full_b0_sharded.py --world 2``; and
+   ``scripts/overfit_demo.py`` at tests/test_trainer.py's staged recipe
+   (30 heightmap-only steps at lr 1e-3, 30 with the physics term at lr
+   1e-4) on the tests' synthetic sequence, held to that test's gates.
+12. one JSON line listing every kernel with its launches on the main path,
    its largest difference from the plain version, its time, the plain
    version's time and its bound on this card.
 
@@ -169,6 +191,7 @@ import copy
 import functools
 import gc
 import glob
+import importlib.util
 import io
 import json
 import os
@@ -190,8 +213,8 @@ from monoforce_tpu_torch.ops import _build, fk_step_cuda, interp_cuda
 from monoforce_tpu_torch.physics import fast
 from monoforce_tpu_torch.physics.controls import shooting_controls
 from monoforce_tpu_torch.losses import physics_loss
-from monoforce_tpu_torch.physics.engine import (RobotModel, rollout,
-                                                rollout_odeint)
+from monoforce_tpu_torch.physics.engine import (RigidState, RobotModel,
+                                                rollout, rollout_odeint)
 from monoforce_tpu_torch.ops import heightmap
 from monoforce_tpu_torch.ops.heightmap import (estimate_heightmap,
                                                local_heightmap)
@@ -205,11 +228,14 @@ from monoforce_tpu_torch.examples import (explore_robot_contacts,
 from monoforce_tpu_torch.physics.controls import generate_controls
 from monoforce_tpu_torch.scripts import eval as eval_script
 from monoforce_tpu_torch.scripts import fit_terrain as fit_script
+from monoforce_tpu_torch.scripts import full_b0_sharded, overfit_demo
 from monoforce_tpu_torch.scripts import navigate as navigate_script
 from monoforce_tpu_torch.scripts import robot_control
 from monoforce_tpu_torch.scripts import run as run_script
 from monoforce_tpu_torch.scripts import train as train_script
 from monoforce_tpu_torch.scripts._common import have_matplotlib
+from monoforce_tpu_torch.parallel import (make_mesh, run_ranks,
+                                          sharded_shoot)
 from monoforce_tpu_torch.planner.controller import FollowerController
 from monoforce_tpu_torch.planner.follower import FollowerParams
 from monoforce_tpu_torch.planner.navigator import navigate
@@ -351,7 +377,7 @@ EXACT_FIT_RTOL = 1e-3
 TRAIN_SEED = 0
 # bench_all.py:193-243's batch and the timed steps after one warm-up; the
 # exact-branch fit's trajectories, steps and iterations (bench_all.py:101-132)
-TRAIN_B, TRAIN_STEPS = 24, 5
+TRAIN_B, TRAIN_STEPS = 24, 3
 EXACT_FIT = (16, 100, 10)
 # navigation: scripts/navigate.py's defaults (64 trajectories, 2 s plans,
 # replans every 0.5 s, 10 Hz ticks, 40 s, force variance; its hill is
@@ -409,6 +435,7 @@ DISK_RUN_LAUNCHES = {"fk_step_muq": 500, "fk_interp": 1}
 # measured on an H100), printed beside the plain versions' own difference
 # between the card and the CPU
 ENTRY_FIT_ITERS = {"exact": 3, "fast": 5}
+SHOOT_REPEATS = 2               # the script's --repeats (its default 5)
 ENTRY_FAST_STEPS = 200          # 2 s at 0.01 s
 DIFF_GRAD_RTOL = 1e-3
 HEAD_ITERS = 5
@@ -416,6 +443,30 @@ HEAD_LOSS_RTOL = 1e-3
 ENTRY_FRAMES = 2
 ENTRY_TICK_MODE = "pair3_muq"
 ENTRY_TICK_LAUNCHES = {"fk_step_muq": 500, "fk_interp": 1}
+# the diff_physics example's rollout states at which one step's VJP
+# through fk_interp_bwd is held against the plain version (TOL's
+# per-launch bound), with a seeded cotangent
+BWD_STEPS = (0, 100, 250, 499)
+# parallel: sharded_shoot against the unsharded planner_rollout on the same
+# inputs at tests/test_parallel.py's gates (positions RMSE, costs rtol):
+# (name, robot config, global batch, steps, shards, friction grid, the step
+# kernel its shards launch); the data-parallel step of two gloo ranks on
+# the card against one process, tests/test_parallel.py's bounds
+# (parameters and BN statistics atol and rtol, the total's rtol), its
+# label NaNs uneven between the ranks; overfit_demo's staged recipe
+# (tests/test_trainer.py::test_overfit_converges)
+SHARD_RMSE_TOL_M = 5e-5
+SHARD_COST_RTOL = 2e-2
+SHARD_CASES = (
+    ("tradr_128x50_8", dict(robot="tradr"), 128, 50, 8, False,
+     "fk_step_muq"),
+    ("planner_64x500_4", "planner", 64, 500, 4, True, "fk_step_pairmu"),
+    ("bench_0.1m_4096x100_8", dict(robot="tradr", mesh_voxel_size=0.1),
+     4096, 100, 8, False, "fk_step_muq"))
+DP_TOL = (1e-5, 1e-4)
+DP_TOTAL_RTOL = 1e-5
+DP_NAN_FRACS = (0.6,) * 4 + (0.02,) * 4
+OVERFIT_WARM, OVERFIT_STEPS = 30, 30
 
 
 def _say(*parts):
@@ -706,7 +757,10 @@ def check_kernels(dev, results, only=None):
     # diff_physics example's gradient (B=8 on the 128 x 128 grid),
     # scripts/fit_terrain.py's fast branch (B=8 on 32 x 32 at 0.4 m) and
     # the inference_with_rough_data example's tick (marv's 0.11 m cloud,
-    # P=107, at 32 trajectories: muq and the lookup)
+    # P=107, at 32 trajectories: muq and the lookup); then the shapes of
+    # phase 11's sharded_shoot: a shard of 16 and the unsharded 128 of
+    # tradr's 0.11 m cloud, a shard of 16 of the planner preset (pairmu and
+    # the lookup) and a shard of 512 of the 0.1 m cloud (muq and the lookup)
     both = ("fk_interp", "fk_interp_bwd")
     cases = (("tradr", 0.15, 4096, ("zu", "pairmu"), (), 0.1),
              ("tradr", 0.1, 4096, ("zu", "muq", "pair3", "packed", "exact"),
@@ -720,7 +774,11 @@ def check_kernels(dev, results, only=None):
              ("tradr", 0.15, 1, (), ("fk_interp",), 0.1),
              ("tradr", 0.11, 8, (), ("fk_interp_bwd",), 0.1),
              ("tradr", 0.11, 8, (), both, 0.4),
-             ("marv", 0.11, 32, ("muq",), ("fk_interp",), 0.1))
+             ("marv", 0.11, 32, ("muq",), ("fk_interp",), 0.1),
+             ("tradr", 0.11, 16, ("muq",), (), 0.1),
+             ("tradr", 0.11, 128, ("muq",), ("fk_interp",), 0.1),
+             ("tradr", 0.15, 16, ("pairmu",), ("fk_interp",), 0.1),
+             ("tradr", 0.1, 512, ("muq",), ("fk_interp",), 0.1))
     for robot_name, voxel, B, fmts, interp, grid_res in cases:
         cfg = PhysicsConfig(robot=robot_name, mesh_voxel_size=voxel,
                             grid_res=grid_res)
@@ -906,7 +964,7 @@ def run_main_path(dev, launches):
         # would drown the kernel-against-plain comparison
         z = torch.from_numpy(gaussian_hill(cfg)).to(dev)
         fr = torch.from_numpy(bench_friction(cfg)).to(dev)
-        workloads.append((name, {step: 500, "fk_interp": 1}, 5,
+        workloads.append((name, {step: 500, "fk_interp": 1}, 2,
                           lambda p=planner, z=z, c=controls, f=fr:
                           p.plan(z, c, friction=f), "fk_step_kernel", None,
                           planner.robot.points.shape[0]))
@@ -935,7 +993,7 @@ def run_main_path(dev, launches):
         if step in ("fk_step_muq", "fk_step_packed"):
             gate = functools.partial(against_fast_rollout, robot, z, controls,
                                      fr)
-        workloads.append((name, want, 10,
+        workloads.append((name, want, 3,
                           lambda r=robot, z=z, c=controls, f=fr:
                           fast.planner_rollout(r, z, c, friction=f),
                           "fk_step_kernel" if step else "fk_interp_kernel",
@@ -955,8 +1013,11 @@ def run_main_path(dev, launches):
         finite = bool(torch.isfinite(xs).all())
         with plain_kernels():
             ref = run()
+            # the plain versions' time: one call, warm after the reference
+            t0 = time.perf_counter()
+            run()
             torch.cuda.synchronize()
-            plain_ms = wall_ms(run, reps=2)
+            plain_ms = (time.perf_counter() - t0) * 1e3
         rmse = float(((xs - positions(ref)) ** 2).mean().sqrt())
         ms = wall_ms(run, reps=reps)
         busy, in_kernel, n_kernel, prof_wall = device_busy(run, kernel)
@@ -975,7 +1036,8 @@ def run_main_path(dev, launches):
              f"{'ok' if good else 'WRONG, want ' + str(want_counts)}; finite "
              f"{finite}; position RMSE vs plain {rmse:.3e} m (tol "
              f"{POS_RMSE_TOL_M:g}){extra}; {ms:.3f} ms per batch (plain "
-             f"{plain_ms:.3f} ms); one profiled call: card busy {busy:.3f} ms, "
+             f"{plain_ms:.3f} ms, one warm call); one profiled call: card busy "
+             f"{busy:.3f} ms, "
              f"{100 * busy / ms:.1f}% of the unprofiled {ms:.3f} ms "
              f"({100 * busy / prof_wall:.1f}% of the profiled call's "
              f"{prof_wall:.3f} ms), {kernel} {in_kernel:.3f} ms in "
@@ -1024,7 +1086,7 @@ def run_fit(dev, launches):
         plain = fit(3)
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses[:3], plain))
     busy, in_interp, _, prof_wall = device_busy(lambda: fit(1), "fk_interp")
-    one_s = wall_ms(lambda: fit(1), reps=3) / 1e3
+    one_s = wall_ms(lambda: fit(1), reps=1) / 1e3
     ok = (good and drop >= FIT_DROP and rel <= FIT_LOSS_RTOL
           and all(np.isfinite(losses)))
     _say(f"fit fit_terrain tradr P={robot.points.shape[0]} B={B} N={N} x "
@@ -1155,12 +1217,12 @@ def run_online_tick(dev, launches, card):
              f"finite {finite} {'ok' if line_ok else 'FAILED'}")
         ok &= line_ok
 
-    # ms per call, medians of 10 synchronised calls, in the order f32,
+    # ms per call, medians of 3 synchronised calls, in the order f32,
     # half, half, f32 (the host's speed drifts within a run)
     ms = {name: {part: [] for part in calls[name]} for name in mfs}
     for name in ("f32", "half", "half", "f32"):
         for part, fn in calls[name].items():
-            ms[name][part].append(wall_ms(fn, reps=10))
+            ms[name][part].append(wall_ms(fn, reps=3))
     for name in mfs:
         busy, in_step, n_step, prof_wall = device_busy(calls[name]["tick"],
                                                        "fk_step_kernel")
@@ -1169,7 +1231,7 @@ def run_online_tick(dev, launches, card):
         _say(f"tick {name} timing: "
              + "; ".join(f"{part} {' and '.join(f'{t:.3f}' for t in v)} ms"
                          for part, v in ms[name].items())
-             + f" (each a median of 10 calls; two rounds); one profiled tick: "
+             + f" (each a median of 3 calls; two rounds); one profiled tick: "
              f"card busy {busy:.3f} ms, {100 * busy / tick_ms:.1f}% of the "
              f"unprofiled {tick_ms:.3f} ms ({100 * busy / prof_wall:.1f}% of "
              f"the profiled {prof_wall:.3f} ms), fk_step_kernel "
@@ -1285,9 +1347,9 @@ def run_exact_engine(dev, launches, card):
     d, robot, z, ctr, ja, fr = golden_case("tradr_hill", dev)
     busy, _, _, prof_wall = device_busy(
         lambda: rollout(robot, z, ctr, friction=fr), "")
-    one = wall_ms(lambda: rollout(robot, z, ctr, friction=fr), reps=3)
-    _say(f"golden timing: rollout tradr_hill 4 x 500 {one:.1f} ms (median of "
-         f"3); one profiled call: card busy {busy:.3f} ms, "
+    one = wall_ms(lambda: rollout(robot, z, ctr, friction=fr), reps=1)
+    _say(f"golden timing: rollout tradr_hill 4 x 500 {one:.1f} ms (one call "
+         f"after a warm-up); one profiled call: card busy {busy:.3f} ms, "
          f"{100 * busy / one:.1f}% of the unprofiled {one:.1f} ms "
          f"({100 * busy / prof_wall:.1f}% of the profiled {prof_wall:.1f} ms) "
          f"[{card}]")
@@ -1619,11 +1681,11 @@ def run_train_step(dev, launches, card):
                  "physics": physics}
         prof = {}
         for name, fn in parts.items():
-            wall = wall_ms(fn, reps=3)
+            wall = wall_ms(fn, reps=1)
             busy, _, _, prof_wall = device_busy(fn, "")
             prof[name] = (wall, busy, prof_wall)
-        _say("train step parts (median of 3 synchronised calls; card busy in "
-             "one profiled call): "
+        _say("train step parts (one synchronised call after a warm-up; card "
+             "busy in one profiled call): "
              + "; ".join(f"{n} {w:.1f} ms, card busy {b:.1f} ms "
                          f"({100 * b / w:.1f}% of it, {100 * b / pw:.1f}% of "
                          f"the profiled {pw:.1f} ms)"
@@ -2147,13 +2209,7 @@ def run_from_disk(dev, launches, card):
              f"{'ok' if good else 'FAILED'} [{card}]")
         ok &= good
 
-        # one more warm train step, outside the profiler
-        batch = next(iter(loaders[0]))
-        tr.train_step(tr._batch(batch), tr.generator)
-        _say(f"from disk: one more warm train step, not profiled: "
-             f"{tr.step_s[-1]:.3f} s; its batch loaded in "
-             f"{loaders[0].passes[-1][0]:.3f} s [{card}]")
-        del tr, batch
+        del tr
         gc.collect()        # the timed step's closure holds the trainer
         torch.cuda.empty_cache()
 
@@ -2241,6 +2297,40 @@ def _finite(*tensors) -> bool:
     return all(bool(torch.isfinite(t).all()) for t in tensors)
 
 
+def interp_bwd_per_step(robot, z, controls):
+    """One step's VJP through fk_interp_bwd at the states of the rollout at
+    BWD_STEPS, each with a seeded cotangent, against the plain version on
+    the same windows, states and cotangent, at the per-launch tolerance:
+    tells a kernel fault apart from BPTT's amplification over the steps.
+    Returns (ok, text)."""
+    with torch.no_grad():
+        states, _ = fast.fast_rollout(robot, z, controls, with_stats=False)
+    c = fast._make_consts(robot)
+    fr = torch.ones_like(z)
+    B, P = controls.shape[0], robot.points.shape[0]
+    rng = np.random.default_rng(5)
+    ok, parts = True, []
+    for k in BWD_STEPS:
+        st = torch.stack(fast._unpack_state(RigidState(
+            *(v[:, k] for v in states))), dim=1).contiguous()
+        wx, wy = fast._world_xy(c, st)
+        sxy, patch = fast._extract_windows(z, fr, wx, wy, robot.d_max,
+                                           robot.grid_res)
+        args = (patch, wx.contiguous(), wy.contiguous(), sxy, c.cst)
+        g = torch.from_numpy(rng.normal(size=(B, 5 * P)).astype(
+            np.float32)).to(z.device)
+        got = interp_cuda.fk_interp_bwd(*args, g)
+        torch.cuda.synchronize()
+        good, err = close(got, interp_cuda.fk_interp_bwd_plain(*args, g),
+                          TOL["fk_interp_bwd"])
+        ok &= good
+        parts.append(f"step {k} max diff {err:.3e}"
+                     + ("" if good else " MISMATCH"))
+    atol, rtol = TOL["fk_interp_bwd"]
+    return ok, (f"{'; '.join(parts)} (tol {atol:g}+{rtol:g}|p|, a seeded "
+                f"cotangent at each step)")
+
+
 def run_entry_points(dev, launches, card):
     """Phase 10: the remaining entry points through their main(argv), at
     full width, from a temporary directory under the git-ignored runs/."""
@@ -2302,18 +2392,21 @@ def run_entry_points(dev, launches, card):
                   f"{[round(float(v), 4) for v in states.x[0, -1]]}, "
                   f"launches {counts} (want none)", lines)
 
-        # (d) robot_control shoot: 64 x 500 fast_rollout, best of 5
+        # (d) robot_control shoot: 64 x 500 fast_rollout, best of 2
         (xs, costs, best_s), counts, secs, lines = _run_entry(
-            lambda: robot_control.main(["shoot", *dev_arg]), launches)
-        calls = 1 + 5
+            lambda: robot_control.main(["shoot", "--repeats",
+                                        str(SHOOT_REPEATS), *dev_arg]),
+            launches)
+        calls = 1 + SHOOT_REPEATS
         want = {"fk_interp": calls * 501}
         good = counts == want and _finite(xs, costs)
         ok &= say("scripts.robot_control shoot (tradr P=97, 64 x 500 "
-                  "fast_rollout on the hill, a warm-up and best of 5)", good,
+                  f"fast_rollout on the hill, a warm-up and best of "
+                  f"{SHOOT_REPEATS})", good,
                   secs, f"launches {counts} "
                   f"{'ok' if counts == want else 'WRONG, want ' + str(want)}"
                   f" (501 a call); costs finite {_finite(costs)}, best "
-                  f"{int(torch.argmin(costs))}; best of 5 "
+                  f"{int(torch.argmin(costs))}; best of {SHOOT_REPEATS} "
                   f"{best_s * 1e3:.3f} ms a call (synchronised)", lines)
 
         # (e) scripts/navigate.py on the ridge (its hill is phase 8's)
@@ -2364,6 +2457,10 @@ def run_entry_points(dev, launches, card):
                   f"against the CPU: {cpu_err:.3e}), "
                   f"{int((out['grad'].abs() > 0).sum())} nonzero cells; fast "
                   f"path {out['fast_s']:.3f} s", lines)
+        good, text = interp_bwd_per_step(robot, z, controls[:8])
+        _say(f"entry diff_physics, fk_interp_bwd per step (B=8, P=97, 128 x "
+             f"128 at 0.1 m): {text} {'ok' if good else 'FAILED'} [{card}]")
+        ok &= good
 
         # (g) examples.train_friction_head, depth cut, against the CPU
         (_, losses), counts, secs, lines = _run_entry(
@@ -2434,6 +2531,209 @@ def run_entry_points(dev, launches, card):
     return ok
 
 
+def _spy_modes(modes):
+    """planner_kernel_mode recording (local batch, mode) of every call."""
+    mode = fast.planner_kernel_mode
+
+    def spy(robot, batch_size, uniform_friction=True):
+        modes.append((batch_size, mode(robot, batch_size, uniform_friction)))
+        return modes[-1][1]
+    return mock.patch.object(fast, "planner_kernel_mode", spy)
+
+
+def run_sharded_shoot(dev, launches, card):
+    """Phase 11 (a): sharded_shoot on shards of cuda:0 at SHARD_CASES,
+    each held against the unsharded planner_rollout on the same inputs."""
+    ok = True
+    rng = np.random.default_rng(0)
+    for name, cfg_kw, B, N, shards, with_fr, step in SHARD_CASES:
+        cfg = (PhysicsConfig.for_planner("tradr") if cfg_kw == "planner"
+               else PhysicsConfig(**cfg_kw))
+        robot = RobotModel.from_config(cfg, device=dev)
+        P = robot.points.shape[0]
+        if name.startswith("tradr"):
+            # tests/test_parallel.py's rough terrain
+            z = torch.from_numpy((0.1 * rng.normal(size=cfg.grid_shape))
+                                 .astype(np.float32)).to(dev)
+        else:
+            z = torch.from_numpy(gaussian_hill(cfg)).to(dev)
+        fr = torch.from_numpy(bench_friction(cfg)).to(dev) if with_fr else None
+        ctr = torch.from_numpy(rng.uniform(-1, 1, (B, N, 2)).astype(
+            np.float32)).to(dev)
+        mesh = make_mesh(shards, device=dev)
+
+        def run(m=mesh, r=robot, z=z, c=ctr, f=fr):
+            return sharded_shoot(m, r, z, c, friction=f)
+
+        for w in WRAPPERS.values():
+            w.launches = 0
+        modes = []
+        with _spy_modes(modes):
+            xs, costs = run()
+        torch.cuda.synchronize()
+        counts = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
+        for n, v in counts.items():
+            launches[entry(n, P)] = launches.get(entry(n, P), 0) + v
+        want = {step: shards * N, "fk_interp": shards}
+        local = B // shards
+        want_mode = fast.planner_kernel_mode(robot, local,
+                                             uniform_friction=False)
+        modes_ok = modes == [(local, want_mode)] * shards
+
+        full_fr = torch.ones_like(z) if fr is None else fr
+
+        def unsharded(r=robot, z=z, c=ctr, f=full_fr):
+            s, st = fast.planner_rollout(r, z, c, friction=f)
+            return s.x, force_variance_cost(st.spring_std)
+
+        def rel_diff(a, b):
+            return float(((a - b).abs() / b.abs().clamp(min=1e-12)).max())
+
+        ref_xs, ref_costs = unsharded()
+        rmse = float(((xs - ref_xs) ** 2).mean().sqrt())
+        cost_rel = rel_diff(costs, ref_costs)
+        # the kernels at these shapes against their plain versions: the
+        # unsharded call through the plain versions, phase 3's gate
+        with plain_kernels():
+            plain_xs, plain_costs = unsharded()
+        plain_rmse = float(((xs - plain_xs) ** 2).mean().sqrt())
+        plain_cost_rel = rel_diff(costs, plain_costs)
+        finite = _finite(xs, costs)
+        reps = 1 if N * shards >= 2000 else 3
+        ms = wall_ms(run, reps=reps)
+        ms_one = wall_ms(unsharded, reps=reps)
+        good = (counts == want and modes_ok and finite
+                and rmse < SHARD_RMSE_TOL_M and cost_rel <= SHARD_COST_RTOL
+                and plain_rmse < POS_RMSE_TOL_M)
+        _say(f"parallel sharded_shoot {name} (P={P}, {B} x {N} over "
+             f"{shards} shards of {local} on {dev}, friction "
+             f"{'grid' if with_fr else 'None: ones'}): modes "
+             f"{sorted(set(m for _, m in modes))} "
+             f"{'ok' if modes_ok else 'WRONG, want ' + want_mode}; launches "
+             f"{counts} "
+             f"{'ok' if counts == want else 'WRONG, want ' + str(want)}; "
+             f"finite {finite}; against the unsharded call: positions RMSE "
+             f"{rmse:.3e} m (tol {SHARD_RMSE_TOL_M:g}), costs rel diff "
+             f"{cost_rel:.3e} (tol {SHARD_COST_RTOL:g}); against the "
+             f"unsharded call through the plain versions: positions RMSE "
+             f"{plain_rmse:.3e} m (tol {POS_RMSE_TOL_M:g}), costs rel diff "
+             f"{plain_cost_rel:.3e}; {ms:.3f} ms per "
+             f"sharded call, {ms_one:.3f} ms unsharded ({ms / ms_one:.2f}x; "
+             f"medians of {reps}) {'ok' if good else 'FAILED'} [{card}]")
+        ok &= good
+    return ok
+
+
+def run_dp_step(dev, card):
+    """Phase 11 (b): the data-parallel train step of two gloo ranks on
+    ``dev`` against one process's step on the same global batch, then
+    scripts/full_b0_sharded.py with two ranks on the card."""
+    args = (str(dev), 8, True, DP_NAN_FRACS)
+    os.makedirs(os.path.join(REPO, "runs"), exist_ok=True)
+    t0 = time.perf_counter()
+    one = full_b0_sharded.train_rank(0, 1, *args)
+    ranks = run_ranks(full_b0_sharded.train_rank, 2, args, timeout=600,
+                      workdir=os.path.join(REPO, "runs"))
+    secs = time.perf_counter() - t0
+    atol, rtol = DP_TOL
+    worst, worst_key, worst_abs = 0.0, "", 0.0
+    for k, want in one["state"].items():
+        got = ranks[0]["state"][k]
+        if not want.dtype.is_floating_point:
+            if not torch.equal(got, want):
+                worst, worst_key = float("inf"), k
+            continue
+        err = (got - want).abs()
+        ratio = float((err / (atol + rtol * want.abs())).max())
+        if ratio > worst:
+            worst, worst_key, worst_abs = ratio, k, float(err.max())
+    total, want_total = (ranks[0]["losses"][0]["total"],
+                         one["losses"][0]["total"])
+    total_rel = abs(total - want_total) / abs(want_total)
+    same = ranks[0]["digest"] == ranks[1]["digest"]
+    good = worst <= 1.0 and total_rel <= DP_TOTAL_RTOL and same
+    _say(f"parallel data-parallel step (2 gloo ranks on {dev}, the tiny B0, "
+         f"global batch 8, label NaNs uneven, SGD 1e-2, TF32 off) against "
+         f"one process: total {total:.7f} vs {want_total:.7f} (rel diff "
+         f"{total_rel:.2e}, tol {DP_TOTAL_RTOL:g}); parameters and BN "
+         f"statistics: worst {worst:.3f} of the bound (atol {atol:g} rtol "
+         f"{rtol:g}; {worst_key}: {worst_abs:.3e}); ranks equal {same}; the "
+         f"step {1e3 * one['seconds'][0]:.1f} ms in one process, "
+         f"{1e3 * ranks[0]['seconds'][0]:.1f} ms on rank 0; {secs:.1f} s "
+         f"with the ranks' start {'ok' if good else 'FAILED'} [{card}]")
+    try:
+        res = full_b0_sharded.main(["--world", "2", "--backend", "gloo",
+                                    "--device", dev.type, "--timeout",
+                                    "300"])
+        b0 = True
+        text = (f"losses {[round(a['total'], 6) for a in res['losses']]}, "
+                f"steps {[round(s, 3) for s in res['seconds']]} s on rank "
+                f"0, {res['run_seconds']:.1f} s in all")
+    except (AssertionError, RuntimeError, TimeoutError) as e:
+        b0, text = False, f"{type(e).__name__}: {e}"
+    _say(f"parallel scripts.full_b0_sharded --world 2 --backend gloo "
+         f"--device cuda: {text} {'ok' if b0 else 'FAILED'} [{card}]")
+    return good and b0
+
+
+def _fixtures():
+    """tests/fixtures.py (numpy, PIL and yaml only): the tests' synthetic
+    ROUGH sequence and tiny LSS configuration."""
+    spec = importlib.util.spec_from_file_location(
+        "fixtures", os.path.join(REPO, "tests", "fixtures.py"))
+    fixtures = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixtures)
+    return fixtures
+
+
+def run_overfit(dev, card):
+    """Phase 11 (c): overfit_demo at the JAX test's staged recipe on the
+    tests' synthetic sequence (tests/fixtures.py, tiny_lss_cfg)."""
+    fixtures = _fixtures()
+    os.makedirs(os.path.join(REPO, "runs"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "runs")) as root:
+        seq = fixtures.make_sequence(root, n_frames=4)
+        lss = fixtures.tiny_lss_cfg()
+        cfg = os.path.join(root, "tiny_lss.yaml")
+        LSSConfig(data_aug_conf=lss["data_aug_conf"],
+                  grid_conf=lss["grid_conf"],
+                  soft_classes=lss["soft_classes"]).to_yaml(cfg)
+        t0 = time.perf_counter()
+        summary = _quiet(lambda: overfit_demo.main(
+            ["--sequence", seq, "--lss_cfg_path", cfg, "--staged",
+             str(OVERFIT_WARM), "--steps", str(OVERFIT_STEPS), "--out",
+             os.path.join(root, "out"), "--device", str(dev)]))
+        secs = time.perf_counter() - t0
+    st = summary["staged"]
+    gates = st["gates"]
+    good = all(gates.values())
+    rows = summary["rows"]
+    warm = [r["total"] for r in rows[:OVERFIT_WARM]]
+    first, final = st["phys_first"], st["phys_final"]
+    _say(f"parallel overfit_demo --staged {OVERFIT_WARM} --steps "
+         f"{OVERFIT_STEPS} (tradr 0.4 m, 1 s, batch 2, tiny LSS): warm total "
+         f"{warm[0]:.5f} -> {warm[-1]:.5f} (min of the last 5 "
+         f"{min(warm[-5:]):.5f}); phys stage total {first['total']:.5f} -> "
+         f"{final['total']:.5f}, phys {first['phys']:.5f} -> "
+         f"{final['phys']:.5f}, max total "
+         f"{st['phys_stage_max_total']:.5f}; gates "
+         + ", ".join(f"{k} {'ok' if v else 'FAILED'}"
+                     for k, v in gates.items())
+         + "; s per step (first, median): "
+         + ", ".join(f"{k} {v['first']:.3f}, {v['median']:.3f}"
+                     for k, v in summary["seconds_per_step"].items())
+         + f"; {secs:.1f} s in all {'ok' if good else 'FAILED'} [{card}]")
+    return good
+
+
+def run_parallel(dev, launches, card):
+    """Phase 11: sharded shooting, the data-parallel step and the
+    convergence demo."""
+    ok = run_sharded_shoot(dev, launches, card)
+    ok &= run_dp_step(dev, card)
+    return ok & run_overfit(dev, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2469,7 +2769,9 @@ def main() -> int:
                       ("from disk",
                        lambda: run_from_disk(dev, launches, card)),
                       ("entry points",
-                       lambda: run_entry_points(dev, launches, card))):
+                       lambda: run_entry_points(dev, launches, card)),
+                      ("parallel",
+                       lambda: run_parallel(dev, launches, card))):
         t1 = time.perf_counter()
         good = fn()
         _say(f"phase {phase}: {'ok' if good else 'FAILED'} in "

@@ -14,7 +14,9 @@ import torch
 
 __all__ = [
     "hm_loss",
+    "hm_loss_terms",
     "physics_loss",
+    "physics_loss_terms",
     "rotation_difference",
     "translation_difference",
     "total_variation",
@@ -52,13 +54,10 @@ def total_variation(heightmap):
     return tv / (h * w)
 
 
-def hm_loss(height_pred, height_gt, weights=None, h_max=None):
-    """Weighted masked MSE between heightmaps (reference: losses.py:77-99).
-
-    NaN cells in either map are excluded from the mean (fixed-shape
-    masking).  If ``h_max`` is given, predictions are squashed to
-    [-h_max, h_max] with tanh first.
-    """
+def hm_loss_terms(height_pred, height_gt, weights=None, h_max=None):
+    """:func:`hm_loss`'s masked sum of squares and its count of NaN-free
+    cells (0-d tensors): the loss is ``sum / max(count, 1)``.  A
+    data-parallel step divides each rank's sum by the global count."""
     if weights is None:
         weights = torch.ones_like(height_gt)
     if h_max is not None:
@@ -66,8 +65,44 @@ def hm_loss(height_pred, height_gt, weights=None, h_max=None):
     valid = ~(torch.isnan(height_pred) | torch.isnan(height_gt))
     pred = torch.where(valid, height_pred, 0.0) * weights
     gt = torch.where(valid, height_gt, 0.0) * weights
-    n_valid = torch.clamp(valid.sum(), min=1)
-    return torch.sum(torch.where(valid, (pred - gt) ** 2, 0.0)) / n_valid
+    return torch.sum(torch.where(valid, (pred - gt) ** 2, 0.0)), valid.sum()
+
+
+def hm_loss(height_pred, height_gt, weights=None, h_max=None):
+    """Weighted masked MSE between heightmaps (reference: losses.py:77-99).
+
+    NaN cells in either map are excluded from the mean (fixed-shape
+    masking).  If ``h_max`` is given, predictions are squashed to
+    [-h_max, h_max] with tanh first.
+    """
+    total, n_valid = hm_loss_terms(height_pred, height_gt, weights, h_max)
+    return total / torch.clamp(n_valid, min=1)
+
+
+def _position_errors(states_pred, states_gt, pred_ts, gt_ts, gamma):
+    """Squared time-weighted position errors (N, T2, 3) of the predicted
+    steps nearest each ground-truth stamp, with the alignment indices and
+    the weights."""
+    X_gt = states_gt[0]
+    X_pred = states_pred[0]
+
+    # nearest predicted step for every ground-truth timestamp
+    ts_ids = torch.argmin(torch.abs(pred_ts[:, None, :] - gt_ts[:, :, None]),
+                          dim=2)
+    batch = torch.arange(X_gt.shape[0], device=X_gt.device)[:, None]
+    X_pred_aligned = X_pred[batch, ts_ids]
+
+    time_weights = 1.0 / (1.0 + gamma * gt_ts[..., None])
+    sq = (X_pred_aligned * time_weights - X_gt * time_weights) ** 2
+    return sq, batch, ts_ids, time_weights
+
+
+def physics_loss_terms(states_pred, states_gt, pred_ts, gt_ts,
+                       gamma: float = 0.9):
+    """:func:`physics_loss`'s sum of squared errors and its count (0-d
+    tensors): the position loss is ``sum / count``."""
+    sq = _position_errors(states_pred, states_gt, pred_ts, gt_ts, gamma)[0]
+    return sq.sum(), torch.tensor(sq.numel(), device=sq.device)
 
 
 def physics_loss(states_pred, states_gt, pred_ts, gt_ts, gamma: float = 0.9,
@@ -83,18 +118,9 @@ def physics_loss(states_pred, states_gt, pred_ts, gt_ts, gamma: float = 0.9,
       gt_ts: (N, T2) ground-truth timestamps.
       gamma: time-discount factor, weights w = 1 / (1 + gamma * t).
     """
-    X_gt = states_gt[0]
-    X_pred = states_pred[0]
-
-    # nearest predicted step for every ground-truth timestamp
-    ts_ids = torch.argmin(torch.abs(pred_ts[:, None, :] - gt_ts[:, :, None]),
-                          dim=2)
-    batch = torch.arange(X_gt.shape[0], device=X_gt.device)[:, None]
-    X_pred_aligned = X_pred[batch, ts_ids]
-
-    time_weights = 1.0 / (1.0 + gamma * gt_ts[..., None])
-    loss = torch.mean((X_pred_aligned * time_weights
-                       - X_gt * time_weights) ** 2)
+    sq, batch, ts_ids, time_weights = _position_errors(
+        states_pred, states_gt, pred_ts, gt_ts, gamma)
+    loss = torch.mean(sq)
 
     if rotation_loss:
         R_gt = states_gt[2]

@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 from monoforce_tpu_torch.config import LSSConfig, PhysicsConfig
-from monoforce_tpu_torch.losses import hm_loss, physics_loss
+from monoforce_tpu_torch.losses import (hm_loss, hm_loss_terms, physics_loss,
+                                        physics_loss_terms)
 from monoforce_tpu_torch.models import LiftSplatShoot
 from monoforce_tpu_torch.models.terrain_encoder.lss import float32_math
 from monoforce_tpu_torch.physics.engine import (RigidState, RobotModel,
@@ -96,11 +97,19 @@ class GradientChain:
     def zero_grad(self):
         self.adam.zero_grad(set_to_none=True)
 
+    def stages(self) -> tuple:
+        """(name, stage) in the order ``step`` runs them; each stage takes
+        the list of gradients."""
+        return (("zero_non_finite", zero_non_finite),
+                ("clip_by_global_norm",
+                 lambda grads: clip_by_global_norm_(grads,
+                                                    self.max_grad_norm)),
+                ("adam", lambda grads: self.adam.step()))
+
     def step(self):
         grads = [p.grad for p in self.params if p.grad is not None]
-        zero_non_finite(grads)
-        clip_by_global_norm_(grads, self.max_grad_norm)
-        self.adam.step()
+        for _, stage in self.stages():
+            stage(grads)
 
     def state_dict(self) -> dict:
         return self.adam.state_dict()
@@ -146,23 +155,34 @@ def _physics_states(robot: RobotModel, terrain: Dict, pose0, controls, k: int):
 def compute_losses(model: LiftSplatShoot, robot: RobotModel, batch,
                    train: bool, generator: Optional[torch.Generator] = None,
                    geom_weight: float = 1.0, terrain_weight: float = 2.0,
-                   phys_weight: float = 1.0, pool_k: int = 4):
+                   phys_weight: float = 1.0, pool_k: int = 4, mean=None):
     """The weighted loss of one batch (the 16-tuple of the ROUGH loader) and
     its parts.  ``train`` puts the model in train mode (BN batch
     statistics, drop-connect masks from ``generator``), else eval mode.
+    ``mean(sum, count)``, where given, turns each loss's sum and count
+    into the loss (the data-parallel step's share of the global mean);
+    else each loss is the batch's own mean.
     Returns (total, {"geom", "terrain", "phys", "total"})."""
     (imgs, rots, trans, intrins, post_rots, post_trans,
      hm_geom, hm_terrain, control_ts, controls, pose0,
      traj_ts, Xs, Xds, Rs, Omegas) = batch
+    if mean is None:
+        hm, phys = hm_loss, physics_loss
+    else:
+        def hm(*a):
+            return mean(*hm_loss_terms(*a))
+
+        def phys(*a):
+            return mean(*physics_loss_terms(*a))
     model.train(train)
     terrain = model(imgs, rots, trans, intrins, post_rots, post_trans,
                     generator=generator)
-    loss_geom = hm_loss(terrain["geom"], hm_geom[:, 0:1], hm_geom[:, 1:2])
-    loss_terrain = hm_loss(terrain["terrain"], hm_terrain[:, 0:1],
-                           hm_terrain[:, 1:2])
+    loss_geom = hm(terrain["geom"], hm_geom[:, 0:1], hm_geom[:, 1:2])
+    loss_terrain = hm(terrain["terrain"], hm_terrain[:, 0:1],
+                      hm_terrain[:, 1:2])
     if phys_weight > 0:
         states_pred = _physics_states(robot, terrain, pose0, controls, pool_k)
-        loss_phys = physics_loss([states_pred.x], [Xs], control_ts, traj_ts)
+        loss_phys = phys([states_pred.x], [Xs], control_ts, traj_ts)
     else:
         loss_phys = torch.zeros((), device=loss_geom.device)
     total = (geom_weight * loss_geom + terrain_weight * loss_terrain

@@ -681,3 +681,44 @@ def test_diff_physics_gradient_launches_the_lookup_kernels(dev):
         torch.from_numpy(ctr))
     err = float((g.cpu() - want).abs().max())
     assert err <= 1e-3 * float(want.abs().max()), err
+
+
+def test_sharded_shoot_on_one_card(dev):
+    """Eight shards of 16 on cuda:0 (tradr P=97, friction None: mode
+    pair3_muq in each shard): fk_step_muq once per step a shard and
+    fk_interp once a shard, and the unsharded call's result (positions RMSE
+    < 5e-5 m, costs within rtol 2e-2, tests/test_parallel.py's gates)."""
+    from monoforce_tpu_torch.parallel import make_mesh, sharded_shoot
+    from monoforce_tpu_torch.planner.shooting import force_variance_cost
+
+    robot = RobotModel.from_config(PhysicsConfig(robot="tradr"), device=dev)
+    rng = np.random.default_rng(0)
+    z = torch.from_numpy((0.1 * rng.normal(size=(128, 128))).astype(
+        np.float32)).to(dev)
+    ctr = torch.from_numpy(rng.uniform(-1, 1, (128, 50, 2)).astype(
+        np.float32)).to(dev)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    xs, costs = sharded_shoot(make_mesh(8, device="cuda:0"), robot, z, ctr)
+    torch.cuda.synchronize()
+    want = {n: 0 for n in WRAPPERS}
+    want["fk_step_muq"], want["fk_interp"] = 8 * 50, 8
+    assert {n: w.launches for n, w in WRAPPERS.items()} == want
+    s, st = fast.planner_rollout(robot, z, ctr, friction=torch.ones_like(z))
+    rmse = float(((xs - s.x) ** 2).mean().sqrt())
+    assert rmse < 5e-5, rmse
+    np.testing.assert_allclose(costs.cpu().numpy(),
+                               force_variance_cost(st.spring_std).cpu().numpy(),
+                               rtol=2e-2)
+
+
+def test_make_mesh_counts_cards(dev):
+    """A mesh over more cards than the machine has raises; a named card
+    holds any number of shards."""
+    from monoforce_tpu_torch.parallel import make_mesh
+
+    n = torch.cuda.device_count()
+    assert make_mesh(device="cuda").size == n
+    with pytest.raises(RuntimeError):
+        make_mesh(n + 1, device="cuda")
+    assert make_mesh(8, device="cuda:0").devices == (dev,) * 8

@@ -251,8 +251,17 @@ def test_rollout_matches_jax(case):
         one, forces, _ = engine.rollout_single(
             tr, t["z"][1], t["f"][1], t["c"][1], torch.zeros((N, 4)),
             engine.RigidState(*(v[1] for v in s0)))
-        np.testing.assert_array_equal(one.x.numpy(), ts.x[1].numpy())
-        np.testing.assert_array_equal(forces[0].numpy(), tf[0][1].numpy())
+        # one body, so the same operations; only the last bit may differ,
+        # where a kernel rounds by the batch's shape: on the CPU the
+        # vectorised contact sigmoid computes the tail of a row alone in
+        # its scalar path and inside the batch in its vector one (one ulp
+        # of the sigmoid, two of a force entry)
+        for k in range(4):
+            np.testing.assert_allclose(one[k].numpy(), ts[k][1].numpy(),
+                                       rtol=0, atol=1e-6, err_msg=str(k))
+        for a, c in zip(forces, tf):
+            np.testing.assert_allclose(a.numpy(), c[1].numpy(), rtol=0,
+                                       atol=1e-6 * float(c[1].abs().max()))
 
 
 @functools.lru_cache(maxsize=None)

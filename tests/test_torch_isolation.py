@@ -88,7 +88,13 @@ def test_port_and_chip_smoke_import_no_jax():
                 "monoforce_tpu_torch.examples.inference_with_rough_data",
                 "monoforce_tpu_torch.examples.explore_data",
                 "monoforce_tpu_torch.examples.explore_robot_contacts",
-                "monoforce_tpu_torch.examples.rgbd_data"):
+                "monoforce_tpu_torch.examples.rgbd_data",
+                "monoforce_tpu_torch.parallel",
+                "monoforce_tpu_torch.parallel.sharding",
+                "monoforce_tpu_torch.parallel.rollout",
+                "monoforce_tpu_torch.parallel.data_parallel",
+                "monoforce_tpu_torch.scripts.overfit_demo",
+                "monoforce_tpu_torch.scripts.full_b0_sharded"):
         assert mod in res["imported"]
 
 
