@@ -3,7 +3,9 @@
 
 Run from the root of the repository:  python3 chip_smoke.py
 
-Phases (any failure exits non-zero before the last line is printed):
+Phases (any failure exits non-zero before the last line is printed; the
+lines of the failed checks and the failed phases' names are then repeated
+on standard error, so that its last lines say what failed):
 
 1. build  -- compile every CUDA kernel of ``monoforce_tpu_torch/ops/csrc``
    with nvcc for sm_90a (one nvcc per source, all at once); print the card's
@@ -165,10 +167,11 @@ Phases (any failure exits non-zero before the last line is printed):
    friction grid, 64 x 500 over 4 shards of 16: pair) and bench.py's 0.1 m
    line (P=148, 4096 x 100 over 8 shards of 512: pair3_muq), each held
    against the unsharded planner_rollout on the same inputs (positions
-   RMSE < 5e-5 m, costs within rtol 2e-2, every shard's mode that of its
-   local batch, its launches counted), and against the unsharded call
-   through the plain versions (positions RMSE < 1e-3 m, phase 3's gate);
-   ms per sharded and unsharded call.
+   within 1e-6 m: the same kernels on the same rows; costs within rtol
+   2e-2; every shard's mode that of its local batch; its launches
+   counted, in all and per card from the profiler's trace), and against
+   the unsharded call through the plain versions (positions RMSE < 1e-3
+   m, phase 3's gate); ms per sharded and unsharded call.
    Then the data-parallel train step of two gloo ranks sharing the card
    (the tiny-geometry B0, a global batch of 8 with label NaNs uneven
    between the ranks, SGD 1e-2, TF32 off) against one process's step
@@ -177,7 +180,21 @@ Phases (any failure exits non-zero before the last line is printed):
    ``scripts/overfit_demo.py`` at tests/test_trainer.py's staged recipe
    (30 heightmap-only steps at lr 1e-3, 30 with the physics term at lr
    1e-4) on the tests' synthetic sequence, held to that test's gates.
-12. one JSON line listing every kernel with its launches on the main path,
+12. four cards -- only where the machine has four or more cards (on one
+   card a line says that it did not run): ``sharded_shoot`` over
+   ``make_mesh(4, device="cuda")`` at phase 11's three shapes (local
+   batches 32, 16 and 1024), each card launching its own kernels (counted
+   per card from the profiler's trace), positions within 1e-6 m of the
+   unsharded call on cuda:0, the cards' kernel windows and their overlap;
+   every card's kernels against their plain versions at the shards'
+   shapes; the data-parallel train step of four NCCL ranks, one a card,
+   at phase 7's full width (6 samples a card of the global batch of 24,
+   make_optimizer, drop-connect 0) held against the one-card step on the
+   same batch as phase 7 holds the card against the CPU (the encoder's
+   step alone; the physics on smooth maps), its time and every card's
+   peak memory beside the one-card step's; then
+   ``scripts/full_b0_sharded.py --world 4 --backend nccl``.
+13. one JSON line listing every kernel with its launches on the main path,
    its largest difference from the plain version, its time, the plain
    version's time and its bound on this card.
 
@@ -234,7 +251,9 @@ from monoforce_tpu_torch.scripts import robot_control
 from monoforce_tpu_torch.scripts import run as run_script
 from monoforce_tpu_torch.scripts import train as train_script
 from monoforce_tpu_torch.scripts._common import have_matplotlib
-from monoforce_tpu_torch.parallel import (make_mesh, run_ranks,
+from monoforce_tpu_torch.parallel import (global_losses, global_share,
+                                          make_dp_train_step, make_mesh,
+                                          run_ranks, shard_batch,
                                           sharded_shoot)
 from monoforce_tpu_torch.planner.controller import FollowerController
 from monoforce_tpu_torch.planner.follower import FollowerParams
@@ -448,14 +467,15 @@ ENTRY_TICK_LAUNCHES = {"fk_step_muq": 500, "fk_interp": 1}
 # per-launch bound), with a seeded cotangent
 BWD_STEPS = (0, 100, 250, 499)
 # parallel: sharded_shoot against the unsharded planner_rollout on the same
-# inputs at tests/test_parallel.py's gates (positions RMSE, costs rtol):
-# (name, robot config, global batch, steps, shards, friction grid, the step
-# kernel its shards launch); the data-parallel step of two gloo ranks on
+# inputs (positions within SHARD_POS_ATOL_M: the same kernels on the same
+# rows; costs at tests/test_parallel.py's rtol): (name, robot config,
+# global batch, steps, shards, friction grid, the step kernel its shards
+# launch); the data-parallel step of two gloo ranks on
 # the card against one process, tests/test_parallel.py's bounds
 # (parameters and BN statistics atol and rtol, the total's rtol), its
 # label NaNs uneven between the ranks; overfit_demo's staged recipe
 # (tests/test_trainer.py::test_overfit_converges)
-SHARD_RMSE_TOL_M = 5e-5
+SHARD_POS_ATOL_M = 1e-6
 SHARD_COST_RTOL = 2e-2
 SHARD_CASES = (
     ("tradr_128x50_8", dict(robot="tradr"), 128, 50, 8, False,
@@ -467,10 +487,46 @@ DP_TOL = (1e-5, 1e-4)
 DP_TOTAL_RTOL = 1e-5
 DP_NAN_FRACS = (0.6,) * 4 + (0.02,) * 4
 OVERFIT_WARM, OVERFIT_STEPS = 30, 30
+# four cards: sharded_shoot over make_mesh(4, device="cuda") at phase 11's
+# shapes (the local batches 32, 16 and 1024: modes pair3_muq, pair,
+# pair3_muq), each card's kernels at those shards' shapes, the
+# data-parallel step of four NCCL ranks at phase 7's full width and
+# scripts/full_b0_sharded.py --world 4 --backend nccl
+MULTI_CARDS = 4
+MULTI_SHARD_CASES = (
+    ("tradr_128x50_4", dict(robot="tradr"), 128, 50, MULTI_CARDS, False,
+     "fk_step_muq"),
+    ("planner_64x500_4", "planner", 64, 500, MULTI_CARDS, True,
+     "fk_step_pairmu"),
+    ("bench_0.1m_4096x100_4", dict(robot="tradr", mesh_voxel_size=0.1),
+     4096, 100, MULTI_CARDS, False, "fk_step_muq"))
+MULTI_KERNEL_CASES = (("tradr", 0.11, 32, ("muq",), ("fk_interp",), 0.1),
+                      ("tradr", 0.15, 16, ("pairmu",), ("fk_interp",), 0.1),
+                      ("tradr", 0.1, 1024, ("muq",), ("fk_interp",), 0.1))
+DP_FULL_STEPS = 3
+
+
+# the lines that report a failed check, repeated on standard error at the
+# end so that its last lines name what failed
+FAILED_LINES = []
+_FAIL_WORDS = ("FAILED", "MISMATCH", "WRONG")
 
 
 def _say(*parts):
-    print(*parts, flush=True)
+    text = " ".join(str(p) for p in parts)
+    print(text, flush=True)
+    if any(w in text for w in _FAIL_WORDS):
+        FAILED_LINES.append(text)
+
+
+def _failure_summary(line: str, width: int = 300) -> str:
+    """A failed check's line, cut to its start, the parts that hold a
+    failure word and its end."""
+    if len(line) <= 3 * width:
+        return line
+    parts = [p for p in line.split("; ")[1:-1]
+             if any(w in p for w in _FAIL_WORDS)]
+    return " ... ".join([line[:width], *parts, line[-width:]])
 
 
 def gpu_name_and_power_limit() -> str:
@@ -585,6 +641,67 @@ def wall_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def reset_peak(dev):
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak_gib(dev) -> float:
+    """The peak memory on ``dev`` since :func:`reset_peak` (0 on the
+    CPU)."""
+    if dev.type != "cuda":
+        return 0.0
+    return torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+
+def sync_all(devices):
+    for d in sorted({d for d in devices if d.type == "cuda"},
+                    key=lambda d: d.index):
+        torch.cuda.synchronize(d)
+
+
+def card_windows(fn, names=("fk_step", "fk_interp")):
+    """One profiled call of ``fn``: per card, the kernels launched there
+    whose names hold one of ``names`` ({card: {name: launches}}) and the
+    window from the first of them to start to the last to end, in ms from
+    the first start on any card ({card: (start, end)}).  Other kernels
+    (the inputs' placement, the gather onto cuda:0) are left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        fn()
+        return {}, {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [(e, n) for e in prof.profiler.kineto_results.events()
+              if e.device_type() == cuda for n in names if n in e.name()]
+    counts, spans = {}, {}
+    t0 = min((e.start_ns() for e, _ in events), default=0)
+    for e, n in events:
+        d = e.device_index()
+        c = counts.setdefault(d, {})
+        c[n] = c.get(n, 0) + 1
+        a = (e.start_ns() - t0) / 1e6
+        b = a + e.duration_ns() / 1e6
+        lo, hi = spans.get(d, (a, b))
+        spans[d] = (min(lo, a), max(hi, b))
+    return counts, spans
+
+
+def overlap_ms(spans: dict) -> float:
+    """The time two or more cards' windows overlap."""
+    edges = sorted([(a, 1) for a, _ in spans.values()]
+                   + [(b, -1) for _, b in spans.values()])
+    total, depth, last = 0.0, 0, None
+    for t, step in edges:
+        if depth >= 2:
+            total += t - last
+        depth += step
+        last = t
+    return total
 
 
 def flat(out):
@@ -736,11 +853,44 @@ STEP_TAPS = {"zu": [(0, 0), (0, 16)], "muq": [(0, 0), (0, 16), (256, 0)],
                        for o in interp_cuda.TAP_OFFSETS]}
 
 
-def check_kernels(dev, results, only=None):
+# (robot, voxel, batch, step formats, lookup kernels, grid); B=64 is
+# the planner tick's batch in its two step formats, and scripts/run.py's
+# tick at its defaults (tradr's 0.11 m cloud: muq and the lookup); then
+# the terrain fit's shape (the same cloud, B=16), the navigation
+# simulator's (the planner preset's 0.15 m cloud, one trajectory), the
+# diff_physics example's gradient (B=8 on the 128 x 128 grid),
+# scripts/fit_terrain.py's fast branch (B=8 on 32 x 32 at 0.4 m) and
+# the inference_with_rough_data example's tick (marv's 0.11 m cloud,
+# P=107, at 32 trajectories: muq and the lookup); then the shapes of
+# phase 11's sharded_shoot: a shard of 16 and the unsharded 128 of
+# tradr's 0.11 m cloud, a shard of 16 of the planner preset (pairmu and
+# the lookup) and a shard of 512 of the 0.1 m cloud (muq and the lookup)
+_BOTH = ("fk_interp", "fk_interp_bwd")
+KERNEL_CASES = (("tradr", 0.15, 4096, ("zu", "pairmu"), (), 0.1),
+                ("tradr", 0.1, 4096, ("zu", "muq", "pair3", "packed", "exact"),
+                 _BOTH, 0.1),
+                ("husky", 0.1, 4096, ("packed",), (), 0.1),
+                ("husky", 0.1, 4094, ("packed",), ("fk_interp_bwd",), 0.1),
+                ("tradr", 0.1, 64, ("muq",), (), 0.1),
+                ("tradr", 0.15, 64, ("pairmu",), (), 0.1),
+                ("tradr", 0.11, 64, ("muq",), ("fk_interp",), 0.1),
+                ("tradr", 0.11, 16, (), _BOTH, 0.1),
+                ("tradr", 0.15, 1, (), ("fk_interp",), 0.1),
+                ("tradr", 0.11, 8, (), ("fk_interp_bwd",), 0.1),
+                ("tradr", 0.11, 8, (), _BOTH, 0.4),
+                ("marv", 0.11, 32, ("muq",), ("fk_interp",), 0.1),
+                ("tradr", 0.11, 16, ("muq",), (), 0.1),
+                ("tradr", 0.11, 128, ("muq",), ("fk_interp",), 0.1),
+                ("tradr", 0.15, 16, ("pairmu",), ("fk_interp",), 0.1),
+                ("tradr", 0.1, 512, ("muq",), ("fk_interp",), 0.1))
+
+
+def check_kernels(dev, results, only=None, cases=KERNEL_CASES):
     """Phase 2: every kernel against its plain version at B=4096 (and two
     at B=4094), on rough terrain, tilted moving bodies.  ``only``, a set
     of kernel names, restricts the checks to those (the inputs stay the
-    same), to compare two trees' kernels quickly."""
+    same), to compare two trees' kernels quickly; ``cases`` replaces the
+    shapes (the four-card phase's shards)."""
     rng = np.random.default_rng(0)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
     ok = True
@@ -749,36 +899,6 @@ def check_kernels(dev, results, only=None):
     floor = launch_floor(flush)
     floor_note = (f"; launch floor at this batch: one-element add_ {floor[1]} "
                  f"ms with L2 flushed ({floor[0]} ms with its input in L2)")
-    # (robot, voxel, batch, step formats, lookup kernels, grid); B=64 is
-    # the planner tick's batch in its two step formats, and scripts/run.py's
-    # tick at its defaults (tradr's 0.11 m cloud: muq and the lookup); then
-    # the terrain fit's shape (the same cloud, B=16), the navigation
-    # simulator's (the planner preset's 0.15 m cloud, one trajectory), the
-    # diff_physics example's gradient (B=8 on the 128 x 128 grid),
-    # scripts/fit_terrain.py's fast branch (B=8 on 32 x 32 at 0.4 m) and
-    # the inference_with_rough_data example's tick (marv's 0.11 m cloud,
-    # P=107, at 32 trajectories: muq and the lookup); then the shapes of
-    # phase 11's sharded_shoot: a shard of 16 and the unsharded 128 of
-    # tradr's 0.11 m cloud, a shard of 16 of the planner preset (pairmu and
-    # the lookup) and a shard of 512 of the 0.1 m cloud (muq and the lookup)
-    both = ("fk_interp", "fk_interp_bwd")
-    cases = (("tradr", 0.15, 4096, ("zu", "pairmu"), (), 0.1),
-             ("tradr", 0.1, 4096, ("zu", "muq", "pair3", "packed", "exact"),
-              both, 0.1),
-             ("husky", 0.1, 4096, ("packed",), (), 0.1),
-             ("husky", 0.1, 4094, ("packed",), ("fk_interp_bwd",), 0.1),
-             ("tradr", 0.1, 64, ("muq",), (), 0.1),
-             ("tradr", 0.15, 64, ("pairmu",), (), 0.1),
-             ("tradr", 0.11, 64, ("muq",), ("fk_interp",), 0.1),
-             ("tradr", 0.11, 16, (), both, 0.1),
-             ("tradr", 0.15, 1, (), ("fk_interp",), 0.1),
-             ("tradr", 0.11, 8, (), ("fk_interp_bwd",), 0.1),
-             ("tradr", 0.11, 8, (), both, 0.4),
-             ("marv", 0.11, 32, ("muq",), ("fk_interp",), 0.1),
-             ("tradr", 0.11, 16, ("muq",), (), 0.1),
-             ("tradr", 0.11, 128, ("muq",), ("fk_interp",), 0.1),
-             ("tradr", 0.15, 16, ("pairmu",), ("fk_interp",), 0.1),
-             ("tradr", 0.1, 512, ("muq",), ("fk_interp",), 0.1))
     for robot_name, voxel, B, fmts, interp, grid_res in cases:
         cfg = PhysicsConfig(robot=robot_name, mesh_voxel_size=voxel,
                             grid_res=grid_res)
@@ -1455,6 +1575,39 @@ def smooth_maps(B, lss, dev):
         for k, a in (("geom", hill), ("terrain", hill), ("friction", fr))}
 
 
+def encoder_step_checks(got: dict, want: dict) -> dict:
+    """{name: (value, tolerance)} of ``got``'s encoder step (a step
+    without the physics term; ``enc_aux`` its losses, ``grads`` its
+    clipped gradients, ``state`` the updated parameters and BN statistics)
+    against ``want``'s from the same weights and batch.  Adam's first step
+    moves every parameter by about lr times the sign of its gradient, so a
+    parameter whose gradient sign the two do not surely share may part by
+    2 lr."""
+    stat_rel = max(float(((got["state"][k] - v).abs() / (1 + v.abs())).max())
+                   for k, v in want["state"].items() if "running" in k)
+    bounds = _grad_bounds(want["grads"])
+    resolved = unresolved = 0.0
+    n_resolved = n_all = 0
+    for k, g in want["grads"].items():
+        diff = (got["state"][k] - want["state"][k]).abs()
+        sure = (g.abs() > 1e-5) & (g.abs() > 10 * (got["grads"][k] - g).abs())
+        resolved = max(resolved, float(diff[sure].max()) if sure.any() else 0.0)
+        unresolved = max(unresolved, float(diff.max()))
+        n_resolved += int(sure.sum())
+        n_all += g.numel()
+    worst_ratio, worst = _grad_diff(got["grads"], want["grads"], bounds)
+    return {
+        "encoder step's losses": (rel(got["enc_aux"], want["enc_aux"]),
+                                  TRAIN_LOSS_RTOL),
+        f"its clipped gradients over their bounds (worst {worst})": (
+            worst_ratio, 1.0),
+        "its BN statistics": (stat_rel, 1e-5),
+        f"its parameters where the sign is sure ({n_resolved} of {n_all})": (
+            resolved, TRAIN_PARAM_ATOL),
+        "its parameters elsewhere": (unresolved, 2e-3 + TRAIN_PARAM_ATOL),
+    }
+
+
 def compare_train_step(dev, lss, dphys, batch, log_dir):
     """The train step at B=2 from the same seeded weights and batch, no
     drop-connect, on the card and on the CPU.  Returns (ok, text).
@@ -1530,19 +1683,6 @@ def compare_train_step(dev, lss, dphys, batch, log_dir):
                                                        cpu["own"][1]))}
     enc_losses = {k: cpu["aux"][k] for k in ("geom", "terrain")}
     hm = {k: cpu["metrics"][k] for k in ("hm_geom", "hm_terrain")}
-    stat_rel = max(float(((card["state"][k] - v).abs() / (1 + v.abs())).max())
-                   for k, v in cpu["state"].items() if "running" in k)
-    bounds = _grad_bounds(cpu["grads"])
-    resolved = unresolved = 0.0
-    n_resolved = n_all = 0
-    for k, g in cpu["grads"].items():
-        diff = (card["state"][k] - cpu["state"][k]).abs()
-        sure = (g.abs() > 1e-5) & (g.abs() > 10 * (card["grads"][k] - g).abs())
-        resolved = max(resolved, float(diff[sure].max()) if sure.any() else 0.0)
-        unresolved = max(unresolved, float(diff.max()))
-        n_resolved += int(sure.sum())
-        n_all += g.numel()
-    worst_ratio, worst = _grad_diff(card["grads"], cpu["grads"], bounds)
     checks = {
         "step's encoder losses": (rel(card["aux"], enc_losses),
                                   TRAIN_LOSS_RTOL),
@@ -1552,14 +1692,7 @@ def compare_train_step(dev, lss, dphys, batch, log_dir):
         "their gradient in the maps": (_map_grad_diff(card["smooth"][1],
                                                       cpu["smooth"][1]),
                                        MAPS_GRAD_RTOL),
-        "encoder step's losses": (rel(card["enc_aux"], cpu["enc_aux"]),
-                                  TRAIN_LOSS_RTOL),
-        f"its clipped gradients over their bounds (worst {worst})": (
-            worst_ratio, 1.0),
-        "its BN statistics": (stat_rel, 1e-5),
-        f"its parameters where the sign is sure ({n_resolved} of {n_all})": (
-            resolved, TRAIN_PARAM_ATOL),
-        "its parameters elsewhere": (unresolved, 2e-3 + TRAIN_PARAM_ATOL),
+        **encoder_step_checks(card, cpu),
         "evaluator's heightmap metrics": (rel(card["metrics"], hm), EVAL_RTOL),
         "evaluator on smooth maps": (rel(card["smooth_metrics"],
                                          cpu["smooth_metrics"]), EVAL_RTOL),
@@ -1701,7 +1834,8 @@ def run_train_step(dev, launches, card):
         torch.cuda.synchronize()
         eval_ms = (time.perf_counter() - t0) * 1e3
         good = all(np.isfinite(v) for v in metrics.values())
-        _say(f"evaluator B={B}: {metrics} finite {good}; {eval_ms:.1f} ms")
+        _say(f"evaluator B={B}: {metrics} finite {good}; {eval_ms:.1f} ms "
+             f"{'ok' if good else 'FAILED'}")
         ok &= good
         del tr, ev, enc_step, terrain, batch
         torch.cuda.empty_cache()
@@ -2541,12 +2675,16 @@ def _spy_modes(modes):
     return mock.patch.object(fast, "planner_kernel_mode", spy)
 
 
-def run_sharded_shoot(dev, launches, card):
-    """Phase 11 (a): sharded_shoot on shards of cuda:0 at SHARD_CASES,
-    each held against the unsharded planner_rollout on the same inputs."""
+def run_sharded_shoot(dev, launches, card, cases=SHARD_CASES,
+                      mesh_device=None, label="parallel"):
+    """sharded_shoot at ``cases`` over a mesh of ``mesh_device``: shards of
+    ``dev`` itself (phase 11), or of every card (``"cuda"``, the four-card
+    phase), each held against the unsharded planner_rollout on ``dev`` on
+    the same inputs and against that call through the plain versions; the
+    launches counted in all and per card, and each card's window."""
     ok = True
     rng = np.random.default_rng(0)
-    for name, cfg_kw, B, N, shards, with_fr, step in SHARD_CASES:
+    for name, cfg_kw, B, N, shards, with_fr, step in cases:
         cfg = (PhysicsConfig.for_planner("tradr") if cfg_kw == "planner"
                else PhysicsConfig(**cfg_kw))
         robot = RobotModel.from_config(cfg, device=dev)
@@ -2560,17 +2698,18 @@ def run_sharded_shoot(dev, launches, card):
         fr = torch.from_numpy(bench_friction(cfg)).to(dev) if with_fr else None
         ctr = torch.from_numpy(rng.uniform(-1, 1, (B, N, 2)).astype(
             np.float32)).to(dev)
-        mesh = make_mesh(shards, device=dev)
+        mesh = make_mesh(shards, device=mesh_device or dev)
 
         def run(m=mesh, r=robot, z=z, c=ctr, f=fr):
-            return sharded_shoot(m, r, z, c, friction=f)
+            out = sharded_shoot(m, r, z, c, friction=f)
+            sync_all(m.devices)
+            return out
 
         for w in WRAPPERS.values():
             w.launches = 0
         modes = []
         with _spy_modes(modes):
             xs, costs = run()
-        torch.cuda.synchronize()
         counts = {n: w.launches for n, w in WRAPPERS.items() if w.launches}
         for n, v in counts.items():
             launches[entry(n, P)] = launches.get(entry(n, P), 0) + v
@@ -2584,13 +2723,15 @@ def run_sharded_shoot(dev, launches, card):
 
         def unsharded(r=robot, z=z, c=ctr, f=full_fr):
             s, st = fast.planner_rollout(r, z, c, friction=f)
+            sync_all([dev])
             return s.x, force_variance_cost(st.spring_std)
 
         def rel_diff(a, b):
             return float(((a - b).abs() / b.abs().clamp(min=1e-12)).max())
 
         ref_xs, ref_costs = unsharded()
-        rmse = float(((xs - ref_xs) ** 2).mean().sqrt())
+        same = torch.equal(xs, ref_xs) and torch.equal(costs, ref_costs)
+        pos_err = float((xs - ref_xs).abs().max())
         cost_rel = rel_diff(costs, ref_costs)
         # the kernels at these shapes against their plain versions: the
         # unsharded call through the plain versions, phase 3's gate
@@ -2598,28 +2739,43 @@ def run_sharded_shoot(dev, launches, card):
             plain_xs, plain_costs = unsharded()
         plain_rmse = float(((xs - plain_xs) ** 2).mean().sqrt())
         plain_cost_rel = rel_diff(costs, plain_costs)
+        per_card, spans = card_windows(run)
+        cards = sorted({d.index for d in mesh.devices})
+        want_card = {"fk_step": N * shards // len(cards),
+                     "fk_interp": shards // len(cards)}
+        cards_ok = sorted(per_card) == cards and all(
+            per_card[c] == want_card for c in cards)
         finite = _finite(xs, costs)
         reps = 1 if N * shards >= 2000 else 3
         ms = wall_ms(run, reps=reps)
         ms_one = wall_ms(unsharded, reps=reps)
-        good = (counts == want and modes_ok and finite
-                and rmse < SHARD_RMSE_TOL_M and cost_rel <= SHARD_COST_RTOL
+        good = (counts == want and modes_ok and cards_ok and finite
+                and pos_err <= SHARD_POS_ATOL_M
+                and cost_rel <= SHARD_COST_RTOL
                 and plain_rmse < POS_RMSE_TOL_M)
-        _say(f"parallel sharded_shoot {name} (P={P}, {B} x {N} over "
-             f"{shards} shards of {local} on {dev}, friction "
+        _say(f"{label} sharded_shoot {name} (P={P}, {B} x {N} over "
+             f"{shards} shards of {local} on "
+             f"{', '.join(sorted({str(d) for d in mesh.devices}))}, friction "
              f"{'grid' if with_fr else 'None: ones'}): modes "
              f"{sorted(set(m for _, m in modes))} "
              f"{'ok' if modes_ok else 'WRONG, want ' + want_mode}; launches "
              f"{counts} "
              f"{'ok' if counts == want else 'WRONG, want ' + str(want)}; "
-             f"finite {finite}; against the unsharded call: positions RMSE "
-             f"{rmse:.3e} m (tol {SHARD_RMSE_TOL_M:g}), costs rel diff "
-             f"{cost_rel:.3e} (tol {SHARD_COST_RTOL:g}); against the "
-             f"unsharded call through the plain versions: positions RMSE "
-             f"{plain_rmse:.3e} m (tol {POS_RMSE_TOL_M:g}), costs rel diff "
-             f"{plain_cost_rel:.3e}; {ms:.3f} ms per "
-             f"sharded call, {ms_one:.3f} ms unsharded ({ms / ms_one:.2f}x; "
-             f"medians of {reps}) {'ok' if good else 'FAILED'} [{card}]")
+             f"per card (profiler) {per_card} "
+             f"{'ok' if cards_ok else 'WRONG, want ' + str(want_card)}; "
+             f"finite {finite}; against the unsharded call on {dev}: bit "
+             f"for bit {same}, positions max abs diff {pos_err:.3e} m (tol "
+             f"{SHARD_POS_ATOL_M:g}), costs rel diff {cost_rel:.3e} (tol "
+             f"{SHARD_COST_RTOL:g}); against the unsharded call through the "
+             f"plain versions: positions RMSE {plain_rmse:.3e} m (tol "
+             f"{POS_RMSE_TOL_M:g}), costs rel diff {plain_cost_rel:.3e}; "
+             f"{ms:.3f} ms per sharded call, {ms_one:.3f} ms unsharded "
+             f"({ms / ms_one:.2f}x; medians of {reps}); each card's rollout "
+             f"kernels ran (ms from the first) "
+             + ", ".join(f"cuda:{c} {a:.1f}-{b:.1f}"
+                         for c, (a, b) in sorted(spans.items()))
+             + f", {overlap_ms(spans):.1f} ms of it on two cards or more "
+             f"{'ok' if good else 'FAILED'} [{card}]")
         ok &= good
     return ok
 
@@ -2734,6 +2890,337 @@ def run_parallel(dev, launches, card):
     return ok & run_overfit(dev, card)
 
 
+
+
+def run_multi_kernels(results, card, n_cards=MULTI_CARDS):
+    """Each card's kernels against their plain versions at the four-card
+    shards' shapes (phase 2's check on every card)."""
+    ok = True
+    for i in range(n_cards):
+        d = torch.device("cuda", i)
+        rows = {}
+        with torch.cuda.device(d):
+            _say(f"four cards: the kernels on {d} at the shards' shapes "
+                 f"[{card}]")
+            ok &= check_kernels(d, rows, cases=MULTI_KERNEL_CASES)
+        for name, rs in rows.items():
+            for r in rs:
+                results.setdefault(name, []).append(dict(r, card=i))
+    return ok
+
+
+def _dp_full_setup(dev, log_dir, lss=None):
+    """Phase 7's trainer (the default LSSConfig unless ``lss`` is given,
+    tradr at 0.4 m, lr 1e-3, seeded weights, drop-connect 0) on ``dev``."""
+    lss = lss or LSSConfig()
+    dphys = PhysicsConfig(robot="tradr", grid_res=0.4)
+    tr = Trainer(dphys, lss, lr=1e-3, log_dir=log_dir, device=dev,
+                 drop_connect_rate=0.0)
+    tr.init_state(seed=TRAIN_SEED)
+    return tr, lss, dphys
+
+
+def dp_full_rank(rank, world, device, steps, log_dir, lss=None,
+                 batch_size=TRAIN_B):
+    """One rank of the full-width data-parallel step: its slice of phase
+    7's global batch of 24 (``bench_all_batch``; ``lss`` and
+    ``batch_size`` shrink it for a rehearsal on the CPU).  The encoder's step alone
+    (no physics term); the step's losses and their gradient in smooth maps
+    (``FixedMaps``); then a fresh model's full steps, timed.  Returns them
+    on the CPU (rank 0 also its clipped gradients and state)."""
+    dev = full_b0_sharded._rank_device(device, rank)
+    tr, lss, dphys = _dp_full_setup(dev, os.path.join(log_dir, str(rank)),
+                                    lss)
+    mesh = make_mesh(world, device=dev)
+    global_batch = bench_all_batch(batch_size, lss, dphys, "cpu")
+    local = tuple(p.shards[rank] for p in shard_batch(global_batch, mesh))
+    out = dict(device=str(dev), local_batch=int(local[0].shape[0]))
+    enc_step, _ = make_dp_train_step(tr.model, tr.robot, tr.optimizer,
+                                     phys_weight=0.0, pool_k=tr.pool_k)
+    out["enc_aux"] = {k: float(v) for k, v in
+                      enc_step(local, tr.generator).items()}
+    out["enc_digest"] = full_b0_sharded._digest(tr.model.state_dict())
+    if rank == 0:
+        out["state"] = {k: v.cpu() for k, v in tr.model.state_dict().items()}
+        out["grads"] = {k: p.grad.cpu() for k, p in
+                        tr.model.named_parameters() if p.grad is not None}
+    maps = {k: v.clone().requires_grad_() for k, v in
+            smooth_maps(out["local_batch"], lss, dev).items()}
+    with float32_math():
+        total, aux = compute_losses(FixedMaps(maps), tr.robot, local, True,
+                                    pool_k=tr.pool_k, mean=global_share())
+        total.backward()
+    out["maps_aux"] = {k: float(v) for k, v in global_losses(aux).items()}
+    out["maps_grads"] = {k: v.grad.cpu() for k, v in maps.items()
+                         if v.grad is not None}
+    del tr, enc_step, maps, total, aux
+    tr, _, _ = _dp_full_setup(dev, os.path.join(log_dir, f"{rank}-full"),
+                              lss)
+    step, _ = make_dp_train_step(tr.model, tr.robot, tr.optimizer,
+                                 pool_k=tr.pool_k)
+    reset_peak(dev)
+    losses, times = [], []
+    for i in range(steps + 1):       # the first is a warm-up
+        sync_all([dev])
+        t0 = time.perf_counter()
+        aux = step(local, tr.generator)
+        sync_all([dev])
+        losses.append({k: float(v) for k, v in aux.items()})
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    out.update(losses=losses, ms=times,
+               peak_gib=peak_gib(dev),
+               digest=full_b0_sharded._digest(tr.model.state_dict()),
+               finite=_finite_model(tr.model))
+    return out
+
+
+def run_dp_full(card, backend="nccl", device="cuda", world=MULTI_CARDS,
+                ref="cuda:0", lss=None, batch_size=TRAIN_B):
+    """The data-parallel train step of ``world`` ranks (NCCL, one a card;
+    gloo on "cuda:0" rehearses the logic on one card) at phase 7's full
+    width, held against the one-card step on ``ref`` on the same global
+    batch as compare_train_step holds the card against the CPU."""
+    dev = torch.device(ref)
+    os.makedirs(os.path.join(REPO, "runs"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "runs")) as tmp:
+        # the one-card references on cuda:0: the encoder's step, the
+        # physics on smooth maps, and phase 7's timed steps
+        tr, lss, dphys = _dp_full_setup(dev, os.path.join(tmp, "one"), lss)
+        batch = bench_all_batch(batch_size, lss, dphys, dev)
+        enc_step, _ = make_train_step(tr.model, tr.robot, tr.optimizer,
+                                      phys_weight=0.0, pool_k=tr.pool_k)
+        one = dict(
+            enc_aux={k: float(v) for k, v in
+                     enc_step(batch, tr.generator).items()},
+            state={k: v.cpu() for k, v in tr.model.state_dict().items()},
+            grads={k: p.grad.cpu() for k, p in tr.model.named_parameters()
+                   if p.grad is not None})
+        one_maps = _maps_losses(smooth_maps(batch_size, lss, dev), tr.robot,
+                                batch, tr.pool_k)
+        del tr, enc_step
+        tr, _, _ = _dp_full_setup(dev, os.path.join(tmp, "one-full"), lss)
+        reset_peak(dev)
+        one_ms = []
+        for i in range(DP_FULL_STEPS + 1):
+            sync_all([dev])
+            t0 = time.perf_counter()
+            tr.train_step(batch, tr.generator)
+            sync_all([dev])
+            if i:
+                one_ms.append((time.perf_counter() - t0) * 1e3)
+        one_peak = peak_gib(dev)
+        del tr, batch
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        ranks = run_ranks(dp_full_rank, world,
+                          (device, DP_FULL_STEPS, os.path.join(tmp, "ranks"),
+                           lss, batch_size),
+                          backend=backend, timeout=900,
+                          workdir=os.path.join(REPO, "runs"))
+        secs = time.perf_counter() - t0
+    r0 = ranks[0]
+    maps_grads = {k: torch.cat([r["maps_grads"][k] for r in ranks])
+                  for k in one_maps[1]}
+    checks = {
+        **encoder_step_checks(r0, one),
+        "physics losses on smooth maps": (rel(r0["maps_aux"], one_maps[0]),
+                                          TRAIN_LOSS_RTOL),
+        "their gradient in the maps": (_map_grad_diff(maps_grads,
+                                                      one_maps[1]),
+                                       MAPS_GRAD_RTOL),
+    }
+    same = (len({r["enc_digest"] for r in ranks}) == 1
+            and len({r["digest"] for r in ranks}) == 1)
+    finite = all(r["finite"] and all(np.isfinite(list(a.values())).all()
+                                     for a in r["losses"]) for r in ranks)
+    devices = [r["device"] for r in ranks]
+    want_devices = [str(full_b0_sharded._rank_device(device, r))
+                    for r in range(world)]
+    good = (all(v <= tol for v, tol in checks.values()) and same and finite
+            and devices == want_devices)
+    _say(f"four cards data-parallel step ({world} {backend} ranks on "
+         f"{', '.join(devices)}, {r0['local_batch']} samples each of phase "
+         f"7's B={batch_size}, make_optimizer, drop-connect 0) against "
+         f"the one-card step on {dev}: "
+         + "; ".join(f"{n} {v:.2e} (tol {t:g})"
+                     for n, (v, t) in checks.items())
+         + f"; ranks' parameters equal {same}; finite {finite}; the full "
+         f"step {statistics.median(r0['ms']):.1f} ms on rank 0 (median of "
+         f"{DP_FULL_STEPS}: " + ", ".join(f"{t:.1f}" for t in r0["ms"])
+         + "), peak memory per card "
+         + ", ".join(f"{r['peak_gib']:.2f}" for r in ranks)
+         + f" GiB; the one-card step {statistics.median(one_ms):.1f} ms "
+         f"(" + ", ".join(f"{t:.1f}" for t in one_ms) + f"), peak "
+         f"{one_peak:.2f} GiB; {secs:.1f} s with the ranks' start "
+         f"{'ok' if good else 'FAILED'} [{card}]")
+    return good
+
+
+def run_multi_card(launches, card, results=None, backend="nccl",
+                   device="cuda"):
+    """The four-card phase: sharded_shoot over four cards against the
+    unsharded call, every card's kernels at the shards' shapes, the
+    full-width data-parallel step of four NCCL ranks against the one-card
+    step, and scripts/full_b0_sharded.py --world 4 --backend nccl.  With
+    ``backend="gloo", device="cuda:0"`` the same logic runs on shards and
+    ranks of one card (a rehearsal; the per-card checks then cover that
+    card)."""
+    results = {} if results is None else results
+    ok = run_sharded_shoot(torch.device("cuda", 0), launches, card,
+                           MULTI_SHARD_CASES, mesh_device=device,
+                           label="four cards")
+    ok &= run_multi_kernels(results, card,
+                            MULTI_CARDS if device == "cuda" else 1)
+    ok &= run_dp_full(card, backend=backend, device=device)
+    try:
+        res = full_b0_sharded.main(
+            ["--world", str(MULTI_CARDS), "--backend", backend, "--device",
+             device, "--timeout", "600"])
+        b0 = res["devices"] == [
+            str(full_b0_sharded._rank_device(device, r))
+            for r in range(MULTI_CARDS)]
+        text = (f"ranks on {res['devices']}; losses "
+                f"{[round(a['total'], 6) for a in res['losses']]}, steps "
+                f"{[round(s, 3) for s in res['seconds']]} s on rank 0, "
+                f"{res['run_seconds']:.1f} s in all")
+    except (AssertionError, RuntimeError, TimeoutError) as e:
+        b0, text = False, f"{type(e).__name__}: {e}"
+    _say(f"four cards scripts.full_b0_sharded --world {MULTI_CARDS} "
+         f"--backend {backend} --device {device}: {text} "
+         f"{'ok' if b0 else 'FAILED'} [{card}]")
+    return ok & b0
+
+
+def device_launches(fn) -> int:
+    """Kernels ``fn()`` launches on the card, from the profiler's raw
+    events (copies and memsets not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda
+               and not e.name().startswith(("Memcpy", "Memset")))
+
+
+# the routes of the conv study: cuDNN's heuristic, PyTorch's own CUDA
+# convolution, cuDNN's benchmark (each on a plain nn.Conv2d forward), and
+# the module as the port runs it (bev.HeadConv routes the heads itself)
+CONV_ROUTES = {"cudnn": dict(enabled=True, benchmark=False),
+               "cudnn off": dict(enabled=False, benchmark=False),
+               "benchmark": dict(enabled=True, benchmark=True),
+               "port": dict(enabled=True, benchmark=False)}
+
+
+def study_bev_convs(dev, card, batches=(1, 2, 4, 6, 8, 24), grid=128,
+                    tf32s=(False, True), kinds=("float32", "half"),
+                    routes=tuple(CONV_ROUTES), tiny=True, out=None):
+    """Launches and ms of every convolution of the BEV encoder (the
+    default LSSConfig's: 64 channels in, on a ``grid`` x ``grid`` BEV grid,
+    128 at full width) alone, forward (eval and train mode run the same
+    convolution) and backward (train), at each batch, TF32 off and on,
+    through each of ``routes`` (CONV_ROUTES; all but the first only with
+    TF32 off in the float32 model), for the float32 model and the half
+    model (whose BEV encoder is float32); then, with ``tiny``, the tiny
+    LSS forward (tests/fixtures.tiny_lss_cfg, batch 2, eval, TF32 off) as
+    the port runs it and with cuDNN off everywhere.  Writes the rows to
+    ``out`` (JSON) and returns them."""
+    from monoforce_tpu_torch.models import LiftSplatShoot
+    from monoforce_tpu_torch.models.terrain_encoder.lss import (
+        half_inference_model)
+
+    lss = LSSConfig()
+    model = LiftSplatShoot(lss.grid_conf, lss.data_aug_conf).to(dev)
+    model.init_weights(torch.Generator().manual_seed(0))
+    models = {"float32": model.bevencode,
+              "half": half_inference_model(model).bevencode}
+    convs = [(n, m) for n, m in model.bevencode.named_modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    rows = []
+    for b in batches:
+        x = torch.randn((b, 64, grid, grid), device=dev)
+        inputs = {}
+        hooks = [m.register_forward_hook(
+            lambda mod, a, y, n=n: inputs.__setitem__(n, a[0].detach()))
+            for n, m in convs]
+        with torch.no_grad(), float32_math():
+            model.bevencode.eval()(x)
+        for h in hooks:
+            h.remove()
+        for kind in kinds:
+            mods = dict(models[kind].named_modules())
+            for tf32, (n, _) in ((t, c) for t in tf32s for c in convs):
+                conv, inp = mods[n], inputs[n]
+                xg = inp.clone().requires_grad_()
+                for route in (routes if kind == "float32" and not tf32
+                              else routes[:1]):
+                    call = (conv if route == "port" else
+                            functools.partial(torch.nn.Conv2d.forward, conv))
+                    with torch.backends.cudnn.flags(
+                            deterministic=False, allow_tf32=tf32,
+                            **CONV_ROUTES[route]):
+                        torch.backends.cuda.matmul.allow_tf32 = tf32
+                        with torch.no_grad():
+                            fwd = (device_launches(lambda: call(inp)),
+                                   time_ms(lambda: call(inp), 3, 1))
+                        y = call(xg)
+                        gy = torch.randn_like(y)
+
+                        def bwd():
+                            torch.autograd.grad(y, (xg, conv.weight), gy,
+                                                retain_graph=True)
+                        back = (device_launches(bwd), time_ms(bwd, 3, 1))
+                        torch.backends.cuda.matmul.allow_tf32 = False
+                    rows.append(dict(
+                        batch=b, grid=grid, model=kind, tf32=tf32, conv=n,
+                        shape=list(inp.shape), route=route,
+                        fwd_launches=fwd[0], fwd_ms=fwd[1],
+                        bwd_launches=back[0], bwd_ms=back[1]))
+                    _say(f"conv study B={b} {kind} tf32={tf32} {n} "
+                         f"{list(inp.shape)} {route}: forward {fwd[0]} "
+                         f"launches {fwd[1]:.3f} ms, backward {back[0]} "
+                         f"launches {back[1]:.3f} ms")
+        del x, inputs
+        torch.cuda.empty_cache()
+    tiny_rows = {}
+    if tiny:
+        cfg = _fixtures().tiny_lss_cfg()
+        small = LiftSplatShoot(cfg["grid_conf"], cfg["data_aug_conf"]).to(dev)
+        small.init_weights(torch.Generator().manual_seed(0))
+        small.eval()
+        hw = cfg["data_aug_conf"]["final_dim"]
+        calib = [c.expand((2, 4) + c.shape[2:]).contiguous()
+                 for c in camera_rig(4, hw, 60.0, 0.5, dev)]
+        imgs = torch.randn((2, 4, 3) + tuple(hw), device=dev)
+
+        def forward():
+            with torch.no_grad():
+                small(imgs, *calib)
+        for route, ctx in (("port", contextlib.nullcontext()),
+                           ("cudnn off",
+                            torch.backends.cudnn.flags(enabled=False))):
+            with ctx:
+                tiny_rows[route] = (device_launches(forward),
+                                    wall_ms(forward, 3))
+        _say(f"conv study: the tiny LSS forward at batch 2 (eval, TF32 "
+             f"off): " + "; ".join(f"{k} {n} launches {ms:.1f} ms"
+                                   for k, (n, ms) in tiny_rows.items())
+             + f" [{card}]")
+    if out:
+        with open(out, "w") as f:
+            json.dump(dict(card=card, torch=torch.__version__,
+                           cudnn=torch.backends.cudnn.version(), rows=rows,
+                           tiny=tiny_rows), f, indent=1)
+    return rows, tiny_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2754,6 +3241,7 @@ def main() -> int:
 
     results, launches = {}, {}
     ok = True
+    failed = []
     for phase, fn in (("kernels", lambda: check_kernels(dev, results)),
                       ("oracles", lambda: check_oracles(dev, launches)),
                       ("main path", lambda: run_main_path(dev, launches)),
@@ -2777,6 +3265,21 @@ def main() -> int:
         _say(f"phase {phase}: {'ok' if good else 'FAILED'} in "
              f"{time.perf_counter() - t1:.1f} s")
         ok &= good
+        if not good:
+            failed.append(phase)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= MULTI_CARDS:
+        t1 = time.perf_counter()
+        good = run_multi_card(launches, card, results)
+        _say(f"phase four cards: {'ok' if good else 'FAILED'} in "
+             f"{time.perf_counter() - t1:.1f} s")
+        ok &= good
+        if not good:
+            failed.append("four cards")
+    else:
+        _say(f"phase four cards: not run, this machine has {n_cards} CUDA "
+             f"device{'s' if n_cards > 1 else ''} and the phase needs "
+             f"{MULTI_CARDS} (run_multi_card)")
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -2794,10 +3297,16 @@ def main() -> int:
             ms=main_row.get("ms"), plain_ms=main_row.get("plain_ms"),
             bound_ms=main_row.get("bound_ms"), bound_by=main_row.get("bound_by"),
             library_ms=None, shapes=rows))
-        ok &= bool(rows) and launches.get(name, 0) > 0
+        if not (rows and launches.get(name, 0) > 0):
+            ok = False
+            failed.append(f"kernel {name}: {len(rows)} shapes checked, "
+                          f"{launches.get(name, 0)} launches")
     _say(json.dumps({"kernels": kernels}))
     if not ok:
-        print("chip_smoke: a phase failed", file=sys.stderr)
+        for line in FAILED_LINES:
+            print(f"chip_smoke: {_failure_summary(line)}", file=sys.stderr)
+        print(f"chip_smoke: a phase failed: {', '.join(failed)}",
+              file=sys.stderr)
         return 1
     _say(card)
     _say(json.dumps({"ok": True, "device": {

@@ -6,17 +6,20 @@ splatted BEV features, an Up fusion back to half resolution, and three
 upsampling heads: geom (ScaledTanh(-1, 1)), diff (ReLU), friction (ReLU),
 with ``terrain = geom - diff`` (lss.py:158).  The convs pad symmetrically,
 as torchvision's do (padding 1 at stride 2 too; the 7x7 stem pads 3).
+Each head's 3x3 convolution steps around one slow cuDNN path
+(:class:`HeadConv`).
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from monoforce_tpu_torch.models.terrain_encoder.layers import (
     BN_MOMENTUM, BatchNorm2d, ScaledTanh, Up, UpsampleAlignCorners)
 
-__all__ = ["BevEncode", "BasicBlock"]
+__all__ = ["BevEncode", "BasicBlock", "HeadConv", "cudnn_slow_path"]
 
 
 def _bn(ch: int) -> BatchNorm2d:
@@ -48,6 +51,44 @@ class BasicBlock(nn.Module):
         return F.relu(h + identity)
 
 
+# cuDNN 9.2 on the H100 runs the heads' 3x3 convolution (256 -> 128
+# channels) in float32 with TF32 off as ~33,000 kernel launches, 0.3-0.5 s
+# a call (8,329 launches at 64 x 64), wherever the batch is not a multiple
+# of 8 and the output holds at least 6 x 64 x 64 pixels: on the 128 x 128
+# grid, batches 2-7, 9-15 and 17-23.  Batches 1, 8, 16, 24, the 32 x 32
+# grid, TF32 on and every backward take a few launches.  Measured by
+# chip_smoke.study_bev_convs: float32 at batches 1-24 on the 128 x 128 and
+# 64 x 64 grids and 1-8, 16, 24 on 32 x 32; TF32 on and the half model
+# (whose BEV encoder is float32) at batches 1, 2, 4, 6, 8 and 24.
+_SLOW_MIN_PIXELS = 6 * 64 * 64
+
+
+def cudnn_slow_path(x) -> bool:
+    """Whether cuDNN would run a head's 3x3 convolution on ``x`` through
+    its many-launch path."""
+    return (x.is_cuda and x.dtype == torch.float32
+            and torch.backends.cudnn.enabled
+            and not torch.backends.cudnn.allow_tf32
+            and x.shape[0] % 8 != 0
+            and x.shape[0] * x.shape[-2] * x.shape[-1] >= _SLOW_MIN_PIXELS)
+
+
+class HeadConv(nn.Conv2d):
+    """A head's 3x3 convolution.  Where :func:`cudnn_slow_path` holds, its
+    forward runs without cuDNN (PyTorch's own CUDA convolution: 7-19
+    launches, under 3 ms at batches 2-6 on 128 x 128); the flag is set for
+    this call only, and the backward and every other case keep cuDNN."""
+
+    def forward(self, x):
+        if not cudnn_slow_path(x):
+            return super().forward(x)
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=False, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic,
+                         allow_tf32=cudnn.allow_tf32):
+            return super().forward(x)
+
+
 class _Head(nn.Sequential):
     """Upsample x2 + 3x3 conv + BN + GELU + 1x1 conv + activation
     (reference: lss.py:115-138; indices 1, 2 and 4 hold the weights)."""
@@ -55,7 +96,7 @@ class _Head(nn.Sequential):
     def __init__(self, in_ch: int, out_ch: int, final_act: nn.Module):
         super().__init__(
             UpsampleAlignCorners(2),
-            nn.Conv2d(in_ch, 128, 3, padding=1, bias=False),
+            HeadConv(in_ch, 128, 3, padding=1, bias=False),
             _bn(128),
             nn.GELU(),
             nn.Conv2d(128, out_ch, 1),

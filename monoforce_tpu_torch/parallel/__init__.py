@@ -13,10 +13,13 @@ from monoforce_tpu_torch.parallel.sharding import (
 from monoforce_tpu_torch.parallel.rollout import sharded_shoot
 from monoforce_tpu_torch.parallel.data_parallel import (
     global_batch_norm,
+    global_losses,
+    global_share,
     make_dp_train_step,
     run_ranks,
 )
 
 __all__ = ["make_mesh", "data_sharding", "replicated", "shard_batch",
            "gather_batch", "sharded_shoot", "global_batch_norm",
-           "make_dp_train_step", "run_ranks"]
+           "global_share", "global_losses", "make_dp_train_step",
+           "run_ranks"]

@@ -34,9 +34,10 @@ slice of the batch, and the step writes them out:
   ``drop_connect_rate=0``.
 
 The process group is the caller's: gloo on the CPU, and gloo also for
-ranks that share one card (NCCL refuses two ranks on one GPU).  Gloo runs
-the all-reduce on CUDA tensors, the only collective the step uses.
-:func:`run_ranks` starts such a group of processes.
+ranks that share one card (NCCL refuses two ranks on one GPU); NCCL with
+one rank a card.  Gloo runs the all-reduce on CUDA tensors, the only
+collective the step uses.  :func:`run_ranks` starts such a group of
+processes on one host; with NCCL, rank r runs on card r.
 """
 
 from __future__ import annotations
@@ -57,8 +58,8 @@ from monoforce_tpu_torch.models.terrain_encoder.layers import BatchNorm2d
 from monoforce_tpu_torch.models.terrain_encoder.lss import float32_math
 from monoforce_tpu_torch.training.trainer import compute_losses
 
-__all__ = ["GlobalBatchNorm2d", "global_batch_norm", "make_dp_train_step",
-           "run_ranks"]
+__all__ = ["GlobalBatchNorm2d", "global_batch_norm", "global_share",
+           "global_losses", "make_dp_train_step", "run_ranks"]
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -126,6 +127,24 @@ def global_batch_norm(model: torch.nn.Module, group=None) -> torch.nn.Module:
     return model
 
 
+def global_share(group=None):
+    """``compute_losses``' ``mean`` for one rank: its own sum over the
+    count all-reduced over ``group`` (taken without gradient), so that the
+    ranks' shares sum to the global batch's loss."""
+    def share(total, count):
+        n = count.detach().to(total.device, torch.float64)
+        dist.all_reduce(n, group=group)
+        return total / torch.clamp(n, min=1).to(total.dtype)
+    return share
+
+
+def global_losses(aux: dict, group=None) -> dict:
+    """The ranks' loss shares summed over ``group``: the global losses."""
+    vals = torch.stack([v.detach() for v in aux.values()])
+    dist.all_reduce(vals, group=group)
+    return dict(zip(aux, vals.unbind()))
+
+
 def make_dp_train_step(model, robot, optimizer, group=None,
                        geom_weight: float = 1.0, terrain_weight: float = 2.0,
                        phys_weight: float = 1.0, pool_k: int = 4):
@@ -140,16 +159,7 @@ def make_dp_train_step(model, robot, optimizer, group=None,
     global_batch_norm(model, group)
     weights = dict(geom_weight=geom_weight, terrain_weight=terrain_weight,
                    phys_weight=phys_weight, pool_k=pool_k)
-
-    def share(total, count):
-        n = count.detach().to(total.device, torch.float64)
-        dist.all_reduce(n, group=group)
-        return total / torch.clamp(n, min=1).to(total.dtype)
-
-    def global_losses(aux):
-        vals = torch.stack([v.detach() for v in aux.values()])
-        dist.all_reduce(vals, group=group)
-        return dict(zip(aux, vals.unbind()))
+    share = global_share(group)
 
     def train_step(batch, generator: Optional[torch.Generator] = None):
         optimizer.zero_grad()
@@ -164,26 +174,41 @@ def make_dp_train_step(model, robot, optimizer, group=None,
         for g, s in zip(grads, flat.split([g.numel() for g in grads])):
             g.copy_(s.view_as(g))
         optimizer.step()
-        return global_losses(aux)
+        return global_losses(aux, group)
 
     def eval_step(batch):
         with torch.no_grad(), float32_math():
             _, aux = compute_losses(model, robot, batch, False, mean=share,
                                     **weights)
-        return global_losses(aux)
+        return global_losses(aux, group)
 
     return train_step, eval_step
 
 
+def _join(backend, rank, world, root, timeout):
+    """Join the default group as ``rank`` over a ``FileStore`` under
+    ``root``.  An NCCL rank selects its card first: NCCL builds its
+    communicator on the current device, so without it every rank's would
+    land on cuda:0.  Returns the rank's card: card ``rank`` under NCCL,
+    None under gloo (the rank's function places its tensors)."""
+    card = torch.device("cuda", rank) if backend == "nccl" else None
+    kw = {}
+    if card is not None:
+        torch.cuda.set_device(card)
+        kw["device_id"] = card
+    dist.init_process_group(
+        backend, store=dist.FileStore(os.path.join(root, "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=timeout), **kw)
+    return card
+
+
 def _rank_main(fn, rank, world, backend, root, timeout, args):
-    """One rank: join the group over a ``FileStore`` under ``root``, run
-    ``fn(rank, world, *args)``, and save its result (or its traceback)."""
+    """One rank: join the group, run ``fn(rank, world, *args)``, and save
+    its result (or its traceback)."""
     torch.set_num_threads(1)
     try:
-        dist.init_process_group(
-            backend, store=dist.FileStore(os.path.join(root, "store"), world),
-            rank=rank, world_size=world,
-            timeout=datetime.timedelta(seconds=timeout))
+        _join(backend, rank, world, root, timeout)
         try:
             out = fn(rank, world, *args)
         finally:
@@ -202,8 +227,16 @@ def run_ranks(fn, world: int, args=(), backend: str = "gloo",
     temporary directory under ``workdir``); returns their results in rank
     order.  ``fn`` must be importable (a module's top-level function) and
     its results picklable by ``torch.save``.  Each rank uses one thread.
-    The first rank to fail, or ``timeout`` seconds passing, ends every
-    rank and raises."""
+    Under ``"nccl"`` rank r runs on card r, and fewer
+    cards than ranks raise here, before any rank starts.  The first rank
+    to fail, or ``timeout`` seconds passing, ends every rank and raises."""
+    if backend == "nccl":
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < world:
+            raise RuntimeError(
+                f"NCCL runs one rank a card: {world} ranks asked for, {have} "
+                f"cards available (use backend='gloo' for ranks that share a "
+                f"card or run on the CPU)")
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(dir=workdir) as root:
         procs = [ctx.Process(target=_rank_main, daemon=True,

@@ -53,13 +53,15 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def on_device(x, device: torch.device, name: str) -> torch.Tensor:
-    """``x`` as float32 on ``device``.  Arrays and lists are copied there;
-    a tensor already on another device raises instead of being moved, so
-    an entry point never carries on quietly on a device it was not given."""
+def on_device(x, device: torch.device, name: str,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``x`` as ``dtype`` on ``device``.  Arrays and lists are copied
+    there; a tensor already on another device raises instead of being
+    moved, so an entry point never carries on quietly on a device it was
+    not given."""
     if isinstance(x, torch.Tensor) and x.device != device:
         raise ValueError(f"{name} is on {x.device}, the robot on {device}")
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    return torch.as_tensor(x, dtype=dtype, device=device)
 
 
 class RigidState(NamedTuple):
@@ -73,7 +75,8 @@ class RigidState(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class RobotModel:
-    """Device-side robot + terrain-interaction parameters (float32).
+    """Device-side robot + terrain-interaction parameters (float32, or
+    float64 where ``from_config`` is asked for it).
 
     ``n_tracks`` / ``has_flippers`` / ``integration_mode`` are the static
     fields that select code paths; every other field is a tensor.
@@ -101,33 +104,40 @@ class RobotModel:
     def device(self) -> torch.device:
         return self.points.device
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.points.dtype
+
     @classmethod
-    def from_config(cls, cfg, device="cuda") -> "RobotModel":
+    def from_config(cls, cfg, device="cuda",
+                    dtype: torch.dtype = torch.float32) -> "RobotModel":
+        """The robot of ``cfg`` on ``device``; ``dtype`` float64 runs the
+        exact engine in double precision (the data-parallel CPU check)."""
         device = resolve_device(device)
 
-        def f32(v):
-            return torch.as_tensor(v, dtype=torch.float32).to(device)
+        def cast(v):
+            return torch.as_tensor(v, dtype=dtype).to(device)
 
         # the inverse is taken on the CPU so that every device gets the same
-        # float32 parameters
-        pts = torch.as_tensor(cfg.robot_points, dtype=torch.float32)
+        # parameters
+        pts = torch.as_tensor(cfg.robot_points, dtype=dtype)
         inertia_inv = torch.linalg.inv(inertia_tensor(cfg.robot_mass, pts))
         return cls(
             points=pts.to(device),
-            driving_masks=f32(cfg.driving_parts.astype("float32")),
-            mass=f32(cfg.robot_mass),
+            driving_masks=cast(cfg.driving_parts),
+            mass=cast(cfg.robot_mass),
             inertia_inv=inertia_inv.to(device),
-            joint_positions=f32(
+            joint_positions=cast(
                 [cfg.joint_positions[k] for k in ("fl", "fr", "rl", "rr")]),
-            robot_size=f32(cfg.robot_size),
-            gravity=f32(cfg.gravity),
-            gravity_direction=f32(cfg.gravity_direction),
-            stiffness=f32(cfg.stiffness),
-            damping=f32(cfg.damping),
-            omega_max=f32(cfg.omega_max),
-            d_max=f32(cfg.d_max),
-            grid_res=f32(cfg.grid_res),
-            dt=f32(cfg.dt),
+            robot_size=cast(cfg.robot_size),
+            gravity=cast(cfg.gravity),
+            gravity_direction=cast(cfg.gravity_direction),
+            stiffness=cast(cfg.stiffness),
+            damping=cast(cfg.damping),
+            omega_max=cast(cfg.omega_max),
+            d_max=cast(cfg.d_max),
+            grid_res=cast(cfg.grid_res),
+            dt=cast(cfg.dt),
             n_tracks=int(cfg.driving_parts.shape[0]),
             has_flippers=("marv" in cfg.robot),
             integration_mode=cfg.integration_mode,
@@ -430,21 +440,22 @@ def _rollout(robot, z_grid, friction, controls, joint_angles, state0,
 
 
 def _inputs(robot, z_grid, controls, joint_angles, state0, friction):
-    """rollout's inputs as float32 on the robot's device, with the JAX
+    """rollout's inputs in the robot's dtype on its device, with the JAX
     engine's defaults: no joint angles, unit friction, the reference's
     initial state."""
-    dev = robot.device
-    controls = on_device(controls, dev, "controls")
-    z_grid = on_device(z_grid, dev, "z_grid")
+    dev, dt = robot.device, robot.dtype
+    controls = on_device(controls, dev, "controls", dt)
+    z_grid = on_device(z_grid, dev, "z_grid", dt)
     B, N = controls.shape[0], controls.shape[1]
-    joint_angles = (torch.zeros((B, N, 4), device=dev) if joint_angles is None
-                    else on_device(joint_angles, dev, "joint_angles"))
+    joint_angles = (torch.zeros((B, N, 4), dtype=dt, device=dev)
+                    if joint_angles is None
+                    else on_device(joint_angles, dev, "joint_angles", dt))
     friction = (torch.ones_like(z_grid) if friction is None
-                else on_device(friction, dev, "friction"))
+                else on_device(friction, dev, "friction", dt))
     if state0 is None:
         state0 = _default_state0(controls)
     else:
-        state0 = RigidState(*(on_device(v, dev, f"state0.{k}")
+        state0 = RigidState(*(on_device(v, dev, f"state0.{k}", dt)
                               for k, v in state0._asdict().items()))
     return z_grid, controls, joint_angles, state0, friction
 

@@ -20,9 +20,14 @@ into the parameters).  Prints timed phase lines.
         --device cpu
     python -m monoforce_tpu_torch.scripts.full_b0_sharded --world 2
 
-Ranks on one card share it over gloo (``--backend nccl`` needs a card per
-rank).  The module also holds the tiny configuration, the synthetic batch
-and the per-rank function, :func:`train_rank`, that the data-parallel
+Ranks on one card share it over gloo; ``--backend nccl --device cuda``
+runs rank r on card r and needs a card per rank:
+
+    python -m monoforce_tpu_torch.scripts.full_b0_sharded --world 4 \\
+        --backend nccl --device cuda
+
+The module also holds the tiny configuration, the synthetic batch and the
+per-rank function, :func:`train_rank`, that the data-parallel
 equivalence check runs with SGD.
 """
 
@@ -130,7 +135,8 @@ def _digest(state: dict) -> str:
 
 
 def train_rank(rank: int, world: int, device: str, batch: int,
-               check: bool = False, nan_fracs=None) -> dict:
+               check: bool = False, nan_fracs=None,
+               dtype: str = "float32") -> dict:
     """Train steps of the tiny-geometry B0 model on this rank's slice of
     the seeded global batch of ``batch`` samples: the data-parallel step
     when ``world > 1`` (inside a process group), else the single-process
@@ -138,24 +144,29 @@ def train_rank(rank: int, world: int, device: str, batch: int,
     steps with ``make_optimizer(LR)`` and drop-connect; with ``check``, the
     equivalence check's: one SGD step at ``CHECK_LR`` with drop-connect
     off, the model's state_dict returned on the CPU.  ``nan_fracs``: see
-    :func:`synthetic_batch`.  Returns the losses of each step, its
-    seconds, whether the parameters moved and are finite, a digest of the
-    parameters and buffers, and the names of the optimizer's stages."""
+    :func:`synthetic_batch`.  ``dtype`` (``"float32"`` or ``"float64"``)
+    is the model's, the robot's and the batch's.  Returns the losses of
+    each step, its seconds, whether the parameters moved and are finite, a
+    digest of the parameters and buffers, and the names of the optimizer's
+    stages."""
     dev = _rank_device(device, rank)
+    dt = getattr(torch, dtype)
     lss, dphys = tiny_configs()
     model = LiftSplatShoot(
         lss.grid_conf, lss.data_aug_conf,
-        drop_connect_rate=0.0 if check else DROP_CONNECT_RATE).to(dev)
+        drop_connect_rate=0.0 if check else DROP_CONNECT_RATE)
     model.init_weights(torch.Generator().manual_seed(SEED))
-    robot = RobotModel.from_config(dphys, device=dev)
+    model.to(dev, dt)
+    robot = RobotModel.from_config(dphys, device=dev, dtype=dt)
     if check:
         optimizer = torch.optim.SGD(model.parameters(), lr=CHECK_LR)
         stages = ["sgd"]
     else:
         optimizer = make_optimizer(LR)(model.parameters())
         stages = [name for name, _ in optimizer.stages()]
-    parts = shard_batch(synthetic_batch(dphys, batch, SEED,
-                                        nan_fracs=nan_fracs),
+    parts = shard_batch(tuple(torch.as_tensor(a, dtype=dt) for a in
+                              synthetic_batch(dphys, batch, SEED,
+                                              nan_fracs=nan_fracs)),
                         make_mesh(world, device=dev))
     local = tuple(p.shards[rank] for p in parts)
     make = make_dp_train_step if world > 1 else make_train_step
@@ -186,8 +197,9 @@ def parse_args(argv=None):
     p.add_argument("--world", type=int, default=8,
                    help="data-parallel ranks (the JAX script's N_DEVICES)")
     p.add_argument("--backend", type=str, default="gloo",
-                   help="torch.distributed backend (gloo; nccl needs a "
-                        "card per rank)")
+                   help="torch.distributed backend: gloo, or nccl with "
+                        "--device cuda (rank r on card r; needs a card "
+                        "per rank)")
     p.add_argument("--timeout", type=float, default=900.0,
                    help="seconds before the ranks are ended and the run "
                         "fails")
@@ -197,8 +209,8 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     """Run and check the data-parallel full-B0 steps; returns rank 0's
-    result with the seconds of the whole run.  Raises AssertionError when
-    a check fails."""
+    result with the seconds of the whole run and every rank's device.
+    Raises AssertionError when a check fails."""
     args = parse_args(argv)
     resolve_device(args.device)
     t0 = time.time()
@@ -230,6 +242,7 @@ def main(argv=None) -> dict:
          "finite, the same on every rank, the chain opens with "
          "zero_non_finite -- all assertions passed")
     res["run_seconds"] = time.time() - t0
+    res["devices"] = [r["device"] for r in results]
     return res
 
 

@@ -722,3 +722,92 @@ def test_make_mesh_counts_cards(dev):
     with pytest.raises(RuntimeError):
         make_mesh(n + 1, device="cuda")
     assert make_mesh(8, device="cuda:0").devices == (dev,) * 8
+
+
+# ------------------------------------------- cuDNN's small-batch path
+
+# the head convolution at batch 2 on the 128 x 128 grid, TF32 off: cuDNN's
+# heuristic launched 33,033 kernels there; routed around cuDNN it takes 7
+HEAD_CONV_LAUNCH_LIMIT = 50
+
+
+def test_head_conv_small_batch_skips_the_slow_cudnn_path(dev):
+    """A head's 3x3 convolution at batch 2 (the input [2, 256, 128, 128],
+    TF32 off) launches at most HEAD_CONV_LAUNCH_LIMIT kernels on the card,
+    and agrees with the CPU within 2e-4."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from monoforce_tpu_torch.models.terrain_encoder.bev import (
+        HeadConv, cudnn_slow_path)
+    from monoforce_tpu_torch.models.terrain_encoder.lss import float32_math
+
+    torch.manual_seed(0)
+    conv = HeadConv(256, 128, 3, padding=1, bias=False)
+    x = torch.randn(2, 256, 128, 128)
+    want = conv(x)
+    conv, xd = conv.to(dev), x.to(dev)
+    with float32_math(), torch.no_grad():
+        assert cudnn_slow_path(xd)
+        conv(xd)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = conv(xd)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and not e.name().startswith(("Memcpy", "Memset"))]
+    assert len(kernels) <= HEAD_CONV_LAUNCH_LIMIT, len(kernels)
+    assert float((got.cpu() - want).abs().max()) <= 2e-4
+
+
+# ------------------------------------------------------------ four cards
+
+@pytest.fixture
+def four_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+def test_full_b0_sharded_nccl_on_four_cards(four_cards):
+    """scripts/full_b0_sharded.py --world 4 --backend nccl: rank r on card
+    r, its checks passed (losses finite, parameters moved and equal on
+    every rank)."""
+    from monoforce_tpu_torch.scripts import full_b0_sharded
+
+    res = full_b0_sharded.main(["--world", "4", "--backend", "nccl",
+                                "--device", "cuda", "--timeout", "600"])
+    assert res["devices"] == [str(d) for d in four_cards]
+
+
+def test_sharded_shoot_on_four_cards(four_cards):
+    """Four shards of 32, one a card (tradr P=97, friction None: mode
+    pair3_muq in each): fk_step_muq once per step a shard and fk_interp
+    once a shard, and the unsharded call's result on cuda:0 within 1e-6 m
+    (the same kernels on the same rows)."""
+    from monoforce_tpu_torch.parallel import make_mesh, sharded_shoot
+    from monoforce_tpu_torch.planner.shooting import force_variance_cost
+
+    dev = four_cards[0]
+    robot = RobotModel.from_config(PhysicsConfig(robot="tradr"), device=dev)
+    rng = np.random.default_rng(0)
+    z = torch.from_numpy((0.1 * rng.normal(size=(128, 128))).astype(
+        np.float32)).to(dev)
+    ctr = torch.from_numpy(rng.uniform(-1, 1, (128, 50, 2)).astype(
+        np.float32)).to(dev)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    mesh = make_mesh(4, device="cuda")
+    assert mesh.devices == tuple(four_cards)
+    xs, costs = sharded_shoot(mesh, robot, z, ctr)
+    for d in four_cards:
+        torch.cuda.synchronize(d)
+    want = {n: 0 for n in WRAPPERS}
+    want["fk_step_muq"], want["fk_interp"] = 4 * 50, 4
+    assert {n: w.launches for n, w in WRAPPERS.items()} == want
+    s, st = fast.planner_rollout(robot, z, ctr, friction=torch.ones_like(z))
+    assert xs.device == dev
+    assert float((xs - s.x).abs().max()) <= 1e-6
+    np.testing.assert_allclose(costs.cpu().numpy(),
+                               force_variance_cost(st.spring_std).cpu().numpy(),
+                               rtol=1e-6)

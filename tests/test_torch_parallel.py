@@ -15,12 +15,23 @@
 - The data-parallel train step: two gloo ranks against the port's
   single-process step on the same global batch of 8 (the tiny-geometry
   B0 of ``__graft_entry__._tiny_cfgs``, SGD 1e-2 as in
-  test_parallel.py::test_train_step_dp_equivalence, drop-connect 0), at
-  that test's bounds: parameters and BN statistics within atol 1e-5 and
-  rtol 1e-4, the total loss within rtol 1e-5.  One case places NaN label
-  cells unevenly (the ranks count different valid cells, where averaging
-  the ranks' own means is not the global mean); the other has none.
+  test_parallel.py::test_train_step_dp_equivalence, drop-connect 0).  In
+  float32 the total loss within that test's rtol 1e-5.  The parameters
+  and BN statistics are held in float64 (model, robot, batch, BN
+  statistics and losses): there the two differ by ~1e-14, and the bound,
+  atol 1e-11 and rtol 1e-10, is 1e6 times tighter than the JAX test's
+  atol 1e-5 and rtol 1e-4.  In float32 the step's rounding (BN's batch
+  statistics through the backward) moved a few stem entries by up to
+  1.8e-5 on some hosts, so a float32 bound there decided the host, not
+  the data-parallel semantics; the card holds the float32 step at the
+  JAX bound (chip_smoke.py phase 11).  One case places NaN label cells
+  unevenly (the ranks count different valid cells, where averaging the
+  ranks' own means is not the global mean); the other has none.
+- ``run_ranks`` with NCCL on a machine without enough cards raises at
+  once, and ranks map to cards in rank order.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -34,9 +45,10 @@ from monoforce_tpu.parallel import sharded_shoot as jax_sharded_shoot
 from monoforce_tpu.physics.engine import RobotModel as JaxRobotModel
 from monoforce_tpu_torch.convert import ROBOT_LEAVES, robot_model_from_arrays
 from monoforce_tpu_torch.losses import hm_loss
-from monoforce_tpu_torch.parallel import (data_sharding, gather_batch,
-                                          make_mesh, replicated, run_ranks,
-                                          shard_batch, sharded_shoot)
+from monoforce_tpu_torch.parallel import (data_parallel, data_sharding,
+                                          gather_batch, make_mesh, replicated,
+                                          run_ranks, shard_batch,
+                                          sharded_shoot)
 from monoforce_tpu_torch.physics import fast
 from monoforce_tpu_torch.physics.engine import RigidState
 from monoforce_tpu_torch.physics.fast import planner_rollout
@@ -45,6 +57,9 @@ from monoforce_tpu_torch.planner.shooting import (force_variance_cost,
 from monoforce_tpu_torch.scripts import full_b0_sharded
 
 B, N, SHARDS = 128, 50, 8
+# the float64 data-parallel step against one process: parameters and BN
+# statistics (the gap is ~1e-14)
+DP_F64_TOL = dict(atol=1e-11, rtol=1e-10)
 
 
 def test_make_mesh_and_sharding_helpers():
@@ -194,13 +209,66 @@ def test_dp_step_matches_single_process(nans, tmp_path):
     assert ranks[0]["losses"] == ranks[1]["losses"]
     np.testing.assert_allclose(ranks[0]["losses"][0]["total"],
                                one["losses"][0]["total"], rtol=1e-5)
+
+    args64 = args + ("float64",)
+    one = full_b0_sharded.train_rank(0, 1, *args64)
+    ranks = run_ranks(full_b0_sharded.train_rank, 2, args64, timeout=300,
+                      workdir=str(tmp_path))
+    assert ranks[0]["digest"] == ranks[1]["digest"]
+    np.testing.assert_allclose(ranks[0]["losses"][0]["total"],
+                               one["losses"][0]["total"], rtol=1e-12)
     n_running = 0
     for k, want in one["state"].items():
         got = ranks[0]["state"][k]
         if not want.dtype.is_floating_point:
             assert torch.equal(got, want), k
             continue
-        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
-                                   rtol=1e-4, err_msg=k)
+        assert want.dtype == torch.float64, k
+        np.testing.assert_allclose(got.numpy(), want.numpy(), err_msg=k,
+                                   **DP_F64_TOL)
         n_running += "running" in k
     assert n_running > 0   # the BN statistics are among the checked tensors
+
+
+def test_run_ranks_nccl_without_enough_cards_raises(monkeypatch, tmp_path):
+    """NCCL runs one rank a card: with fewer cards than ranks run_ranks
+    raises before any rank starts (no gloo fallback, no wait for the
+    timeout)."""
+    args = ("cuda", 4, True, None)
+    for have in ((0, 2) if not torch.cuda.is_available() else ()) + (1,):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda h=have: h > 0)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda h=have: h)
+        t0 = time.perf_counter()
+        with pytest.raises(RuntimeError, match="NCCL runs one rank a card"):
+            run_ranks(full_b0_sharded.train_rank, have + 1, args,
+                      backend="nccl", timeout=600, workdir=str(tmp_path))
+        assert time.perf_counter() - t0 < 5.0
+    assert not list(tmp_path.iterdir())     # no rank's store was made
+
+
+def test_nccl_ranks_map_to_their_cards(monkeypatch, tmp_path):
+    """Rank r of four runs on card r: the script's device rule, and the
+    group's setup, which selects the card before joining the group and
+    hands it to NCCL; gloo ranks select none."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    cards = [torch.device("cuda", r) for r in range(4)]
+    assert [full_b0_sharded._rank_device("cuda", r)
+            for r in range(4)] == cards
+    assert {full_b0_sharded._rank_device("cuda:0", r)
+            for r in range(4)} == {torch.device("cuda", 0)}
+    assert full_b0_sharded._rank_device("cpu", 3) == torch.device("cpu")
+    calls = []
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: calls.append(("set_device", d)))
+    monkeypatch.setattr(data_parallel.dist, "init_process_group",
+                        lambda backend, **kw: calls.append(
+                            (backend, kw["rank"], kw["world_size"],
+                             kw.get("device_id"))))
+    for r in range(4):
+        assert data_parallel._join("nccl", r, 4, str(tmp_path), 60) == \
+            cards[r]
+    assert calls == [c for r in range(4) for c in
+                     (("set_device", cards[r]), ("nccl", r, 4, cards[r]))]
+    calls.clear()
+    assert data_parallel._join("gloo", 1, 2, str(tmp_path), 60) is None
+    assert calls == [("gloo", 1, 2, None)]
