@@ -32,6 +32,7 @@ from monoforce_tpu_torch.models.terrain_encoder.geometry import (
     create_frustum, gen_dx_bx, get_geometry)
 from monoforce_tpu_torch.models.terrain_encoder.layers import Up
 from monoforce_tpu_torch.ops.voxel_pool import voxel_pool
+from monoforce_tpu_torch.utils.profiling import span
 
 __all__ = ["LiftSplatShoot", "CamEncode", "half_inference_model",
            "float32_math"]
@@ -148,10 +149,12 @@ class LiftSplatShoot(nn.Module):
 
     def get_voxels(self, imgs, rots, trans, intrins, post_rots, post_trans,
                    generator: Optional[torch.Generator] = None):
-        geom = get_geometry(self.frustum, rots, trans, intrins, post_rots,
-                            post_trans)
-        return voxel_pool(geom, self.get_cam_feats(imgs, generator), self.dx,
-                          self.bx, self.nx)
+        with span("encode.cam"):
+            feats = self.get_cam_feats(imgs, generator)
+        with span("encode.splat"):
+            geom = get_geometry(self.frustum, rots, trans, intrins, post_rots,
+                                post_trans)
+            return voxel_pool(geom, feats, self.dx, self.bx, self.nx)
 
     def forward(self, imgs, rots, trans, intrins, post_rots, post_trans,
                 generator: Optional[torch.Generator] = None
@@ -167,4 +170,6 @@ class LiftSplatShoot(nn.Module):
                                   post_trans, generator)
             # torch does not promote inside a conv: the BEV input takes the
             # BEV encoder's dtype (float32 in the half mode too)
-            return self.bevencode(bev.to(self.bevencode.conv1.weight.dtype))
+            with span("encode.bev"):
+                return self.bevencode(
+                    bev.to(self.bevencode.conv1.weight.dtype))

@@ -47,6 +47,7 @@ import torch
 
 from monoforce_tpu_torch.ops import _build
 from monoforce_tpu_torch.ops.interp_cuda import TAP_OFFSETS
+from monoforce_tpu_torch.utils.profiling import register_launches
 
 __all__ = ["FORMATS", "pack_consts", "pack_points", "fk_step_plain",
            "fk_step_zu", "fk_step_muq", "fk_step_pairmu", "fk_step_pair3",
@@ -263,6 +264,7 @@ class _StepKernel:
         self.fmt = fmt
         self.__name__ = name or f"fk_step_{fmt}"
         self.launches = 0
+        register_launches(self.__name__, self)
 
     def __call__(self, cst, patch, state, tv, sxy, pts):
         """cst: (18,) f32 (pack_consts); patch: (B, FORMATS[fmt]) window

@@ -27,6 +27,7 @@ import ctypes
 import torch
 
 from monoforce_tpu_torch.ops import _build
+from monoforce_tpu_torch.utils.profiling import register_launches
 
 __all__ = ["TAP_OFFSETS", "fk_interp", "fk_interp_plain", "fk_interp_bwd",
            "fk_interp_bwd_plain"]
@@ -145,6 +146,7 @@ def fk_interp(patch, wx, wy, sxy, cst):
 
 
 fk_interp.launches = 0
+register_launches("fk_interp", fk_interp)
 
 
 def fk_interp_bwd(patch, wx, wy, sxy, cst, g):
@@ -174,3 +176,4 @@ def fk_interp_bwd(patch, wx, wy, sxy, cst, g):
 
 
 fk_interp_bwd.launches = 0
+register_launches("fk_interp_bwd", fk_interp_bwd)

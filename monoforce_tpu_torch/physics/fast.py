@@ -40,6 +40,7 @@ import torch
 from monoforce_tpu_torch.physics.controls import vw_to_track_vels
 from monoforce_tpu_torch.physics.engine import (RigidState, _default_state0,
                                                 on_device)
+from monoforce_tpu_torch.utils.profiling import count, span
 
 __all__ = ["fast_rollout", "planner_rollout", "planner_kernel_mode",
            "StepStats", "quantize_mu_grid"]
@@ -564,10 +565,23 @@ def planner_rollout(robot, z_grid, controls,
     Returns (RigidState with (B, N, ...) leaves, StepStats or None).
     Raises ValueError for an input tensor on another device than the
     robot's.
+
+    Recorded as span ``rollout`` (``utils.profiling``) over
+    ``rollout.settle``, a ``rollout.extract`` and a ``rollout.steps`` per
+    block of steps between window refreshes, and ``rollout.stats``; its
+    counter ``rollout.steps`` (N).
     """
+    with span("rollout"):
+        return _planner_rollout(robot, z_grid, controls, state0, friction,
+                                track_vels, with_stats)
+
+
+def _planner_rollout(robot, z_grid, controls, state0, friction, track_vels,
+                     with_stats):
     B = controls.shape[0]
     mode = planner_kernel_mode(robot, B, uniform_friction=friction is None)
     if mode == "fallback":
+        count("rollout.steps", controls.shape[1])
         return fast_rollout(robot, z_grid, controls, state0=state0,
                             friction=friction, track_vels=track_vels,
                             with_stats=with_stats)
@@ -602,12 +616,14 @@ def planner_rollout(robot, z_grid, controls,
     state18 = torch.stack(_unpack_state(state0), dim=1).to(dev, torch.float32)
 
     # settle: rest the body on the terrain under its contact points
-    wx0, wy0 = _world_xy(c, state18)
-    sxy0, patch0 = _extract_windows(z_grid, friction, wx0, wy0, d_max, res)
-    z0 = fk_interp(patch0, wx0.contiguous(), wy0.contiguous(), sxy0,
-                   c.cst)[:, :wx0.shape[1]]
-    state18 = state18.clone()
-    state18[:, 2] = z0.sum(dim=1) / wx0.shape[1]
+    with span("rollout.settle"):
+        wx0, wy0 = _world_xy(c, state18)
+        sxy0, patch0 = _extract_windows(z_grid, friction, wx0, wy0, d_max,
+                                        res)
+        z0 = fk_interp(patch0, wx0.contiguous(), wy0.contiguous(), sxy0,
+                       c.cst)[:, :wx0.shape[1]]
+        state18 = state18.clone()
+        state18[:, 2] = z0.sum(dim=1) / wx0.shape[1]
 
     if mode in ("pair_zu", "pair3_zu"):
         step = fk_step_zu
@@ -640,27 +656,31 @@ def planner_rollout(robot, z_grid, controls,
         # windows over the footprint now and at the velocity-predicted end
         # of the block (the remainder block predicts over its own length)
         t_blk = n_blk * dt
-        wx, wy = _world_xy(c, state18)
-        sxy, patch = extract(wx, wy, state18[:, 3:4] * t_blk,
-                             state18[:, 4:5] * t_blk)
-        for k in range(start, start + n_blk):
-            acc8 = step(cst, patch, state18, tv_t[k], sxy, pts)
-            state18 = _integrate(state18, acc8, dt)
-            states.append(state18)
-            accs.append(acc8)
+        count("rollout.steps", n_blk)
+        with span("rollout.extract"):
+            wx, wy = _world_xy(c, state18)
+            sxy, patch = extract(wx, wy, state18[:, 3:4] * t_blk,
+                                 state18[:, 4:5] * t_blk)
+        with span("rollout.steps"):
+            for k in range(start, start + n_blk):
+                acc8 = step(cst, patch, state18, tv_t[k], sxy, pts)
+                state18 = _integrate(state18, acc8, dt)
+                states.append(state18)
+                accs.append(acc8)
 
-    seq = torch.stack(states, dim=1)                           # (B, N, 18)
-    xs = seq[..., 0:3]
-    Rs = seq[..., 6:15].reshape(seq.shape[:2] + (3, 3))
-    delta_h = robot.mass * robot.gravity / (robot.stiffness + 1e-6)
-    xs = xs + Rs[..., :, 2] * delta_h
-    out = RigidState(xs, seq[..., 3:6], Rs, seq[..., 15:18])
+    with span("rollout.stats"):
+        seq = torch.stack(states, dim=1)                       # (B, N, 18)
+        xs = seq[..., 0:3]
+        Rs = seq[..., 6:15].reshape(seq.shape[:2] + (3, 3))
+        delta_h = robot.mass * robot.gravity / (robot.stiffness + 1e-6)
+        xs = xs + Rs[..., :, 2] * delta_h
+        out = RigidState(xs, seq[..., 3:6], Rs, seq[..., 15:18])
 
-    stats = None
-    if with_stats:
-        roll = torch.atan2(Rs[..., 2, 1], Rs[..., 2, 2])
-        pitch = torch.atan2(-Rs[..., 2, 0],
-                            torch.sqrt(Rs[..., 2, 1] ** 2 + Rs[..., 2, 2] ** 2))
-        spring_std = torch.stack([a[:, 6] for a in accs], dim=1)
-        stats = StepStats(spring_std, roll.abs(), pitch.abs())
-    return out, stats
+        stats = None
+        if with_stats:
+            roll = torch.atan2(Rs[..., 2, 1], Rs[..., 2, 2])
+            pitch = torch.atan2(-Rs[..., 2, 0], torch.sqrt(
+                Rs[..., 2, 1] ** 2 + Rs[..., 2, 2] ** 2))
+            spring_std = torch.stack([a[:, 6] for a in accs], dim=1)
+            stats = StepStats(spring_std, roll.abs(), pitch.abs())
+        return out, stats

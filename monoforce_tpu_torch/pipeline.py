@@ -22,6 +22,7 @@ from monoforce_tpu_torch.physics.controls import shooting_controls
 from monoforce_tpu_torch.physics.engine import (RigidState, RobotModel,
                                                 on_device)
 from monoforce_tpu_torch.planner.shooting import PlanResult, _plan
+from monoforce_tpu_torch.utils.profiling import span
 
 __all__ = ["MonoForce"]
 
@@ -93,8 +94,9 @@ class MonoForce:
         if self._encoder is None:
             raise RuntimeError("no weights: call init_params, load_state_dict "
                                "or load_torch_checkpoint first")
-        return self._encoder(*self._inputs(imgs, rots, trans, intrins,
-                                           post_rots, post_trans))
+        with span("encode"):
+            return self._encoder(*self._inputs(imgs, rots, trans, intrins,
+                                               post_rots, post_trans))
 
     @torch.no_grad()
     def run(self, imgs, rots, trans, intrins, post_rots, post_trans,
@@ -111,21 +113,27 @@ class MonoForce:
         Returns (terrain maps dict, PlanResult with B = n_sim_trajs paths,
         planned on the first frame's terrain and friction).
         """
-        terrain = self.encode(imgs, rots, trans, intrins, post_rots,
-                              post_trans)
-        cfg = self.dphys_cfg
-        if controls is None:
-            if generator is None:
-                generator = torch.Generator(device=self.device).manual_seed(0)
-            controls, _ = shooting_controls(
-                generator, cfg.n_sim_trajs, cfg.vel_max, cfg.omega_max,
-                cfg.traj_sim_time, cfg.dt)
-        controls = on_device(controls, self.device, "controls")
-        if state0 is not None:
-            B = controls.shape[0]
-            leaves = [on_device(v, self.device, f"state0.{k}")
-                      for k, v in state0._asdict().items()]
-            state0 = RigidState(*(a.expand((B,) + a.shape) for a in leaves))
-        plan = _plan(self.robot, terrain["terrain"][0, 0],
-                     terrain["friction"][0, 0], controls, state0, self.cost)
+        with span("tick"):
+            terrain = self.encode(imgs, rots, trans, intrins, post_rots,
+                                  post_trans)
+            with span("plan"):
+                cfg = self.dphys_cfg
+                if controls is None:
+                    if generator is None:
+                        generator = torch.Generator(
+                            device=self.device).manual_seed(0)
+                    with span("plan.controls"):
+                        controls, _ = shooting_controls(
+                            generator, cfg.n_sim_trajs, cfg.vel_max,
+                            cfg.omega_max, cfg.traj_sim_time, cfg.dt)
+                controls = on_device(controls, self.device, "controls")
+                if state0 is not None:
+                    B = controls.shape[0]
+                    leaves = [on_device(v, self.device, f"state0.{k}")
+                              for k, v in state0._asdict().items()]
+                    state0 = RigidState(*(a.expand((B,) + a.shape)
+                                          for a in leaves))
+                plan = _plan(self.robot, terrain["terrain"][0, 0],
+                             terrain["friction"][0, 0], controls, state0,
+                             self.cost)
         return terrain, plan

@@ -17,6 +17,7 @@ import torch
 from monoforce_tpu_torch.physics.controls import shooting_controls
 from monoforce_tpu_torch.physics.engine import (RigidState, RobotModel,
                                                 on_device)
+from monoforce_tpu_torch.utils.profiling import span
 
 __all__ = [
     "Planner", "PlanResult", "force_variance_cost", "inclination_cost",
@@ -76,13 +77,14 @@ def _plan(robot: RobotModel, z_grid, friction, controls, state0,
 
     states, stats = planner_rollout(robot, z_grid, controls, state0=state0,
                                     friction=friction)
-    if cost == "force_variance":
-        costs = force_variance_cost(stats.spring_std)
-    elif cost == "inclination":
-        costs = inclination_cost(stats.abs_roll, stats.abs_pitch)
-    else:
-        raise ValueError(f"unknown cost {cost!r}")
-    return PlanResult(states.x, states.R, costs, torch.argmin(costs))
+    with span("plan.cost"):
+        if cost == "force_variance":
+            costs = force_variance_cost(stats.spring_std)
+        elif cost == "inclination":
+            costs = inclination_cost(stats.abs_roll, stats.abs_pitch)
+        else:
+            raise ValueError(f"unknown cost {cost!r}")
+        return PlanResult(states.x, states.R, costs, torch.argmin(costs))
 
 
 class Planner:

@@ -45,6 +45,8 @@ from monoforce_tpu_torch.models import LiftSplatShoot
 from monoforce_tpu_torch.models.terrain_encoder.lss import float32_math
 from monoforce_tpu_torch.physics.engine import (RigidState, RobotModel,
                                                 auto_remat_segment, rollout)
+from monoforce_tpu_torch.utils.profiling import (outputs_of, span,
+                                                 staged_backward)
 
 __all__ = ["Trainer", "make_train_step", "make_optimizer", "avg_pool_grid",
            "compute_losses", "zero_non_finite", "clip_by_global_norm_",
@@ -162,7 +164,8 @@ def compute_losses(model: LiftSplatShoot, robot: RobotModel, batch,
     ``mean(sum, count)``, where given, turns each loss's sum and count
     into the loss (the data-parallel step's share of the global mean);
     else each loss is the batch's own mean.
-    Returns (total, {"geom", "terrain", "phys", "total"})."""
+    Returns (total, {"geom", "terrain", "phys", "total"}); recorded as
+    spans ``encoder.forward`` and ``physics.forward``."""
     (imgs, rots, trans, intrins, post_rots, post_trans,
      hm_geom, hm_terrain, control_ts, controls, pose0,
      traj_ts, Xs, Xds, Rs, Omegas) = batch
@@ -175,14 +178,17 @@ def compute_losses(model: LiftSplatShoot, robot: RobotModel, batch,
         def phys(*a):
             return mean(*physics_loss_terms(*a))
     model.train(train)
-    terrain = model(imgs, rots, trans, intrins, post_rots, post_trans,
-                    generator=generator)
+    with span("encoder.forward"):
+        terrain = model(imgs, rots, trans, intrins, post_rots, post_trans,
+                        generator=generator)
     loss_geom = hm(terrain["geom"], hm_geom[:, 0:1], hm_geom[:, 1:2])
     loss_terrain = hm(terrain["terrain"], hm_terrain[:, 0:1],
                       hm_terrain[:, 1:2])
     if phys_weight > 0:
-        states_pred = _physics_states(robot, terrain, pose0, controls, pool_k)
-        loss_phys = phys([states_pred.x], [Xs], control_ts, traj_ts)
+        with span("physics.forward"):
+            states_pred = _physics_states(robot, terrain, pose0, controls,
+                                          pool_k)
+            loss_phys = phys([states_pred.x], [Xs], control_ts, traj_ts)
     else:
         loss_phys = torch.zeros((), device=loss_geom.device)
     total = (geom_weight * loss_geom + terrain_weight * loss_terrain
@@ -200,19 +206,28 @@ def make_train_step(model: LiftSplatShoot, robot: RobotModel,
 
     ``train_step(batch, generator)`` updates the model's parameters and BN
     statistics in place and returns the losses as 0-d tensors on the
-    device; ``eval_step(batch)`` returns the eval-mode losses."""
+    device; ``eval_step(batch)`` returns the eval-mode losses.
+
+    A train step is recorded (``utils.profiling``) as span ``train_step``
+    over ``encoder.forward``, ``physics.forward``, ``backward`` (split
+    into ``physics.backward`` and ``encoder.backward`` where the gradient
+    reaches the encoder's maps) and ``optimizer``."""
     weights = dict(geom_weight=geom_weight, terrain_weight=terrain_weight,
                    phys_weight=phys_weight, pool_k=pool_k)
 
     def train_step(batch, generator: Optional[torch.Generator] = None):
-        optimizer.zero_grad()
-        # TF32 stays off over the backward too
-        with float32_math():
-            total, aux = compute_losses(model, robot, batch, True, generator,
-                                        **weights)
-            total.backward()
-        optimizer.step()
-        return {k: v.detach() for k, v in aux.items()}
+        with span("train_step"):
+            optimizer.zero_grad()
+            # TF32 stays off over the backward too
+            with float32_math(), outputs_of(model) as maps:
+                total, aux = compute_losses(model, robot, batch, True,
+                                            generator, **weights)
+                with span("backward"):
+                    staged_backward(total, maps, "physics.backward",
+                                    "encoder.backward")
+            with span("optimizer"):
+                optimizer.step()
+            return {k: v.detach() for k, v in aux.items()}
 
     def eval_step(batch):
         with torch.no_grad(), float32_math():
