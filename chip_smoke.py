@@ -25,7 +25,12 @@ on standard error, so that its last lines say what failed):
    plain version between CUDA events, and the bound; beside the lookup
    rows, the window words the taps touch and the 32-byte sectors that hold
    them; beside the B=64, B=32, B=16, B=8 and B=1 rows, one launch's
-   floor (a one-element ``add_`` in the same kind of trace).  Then the JAX tests' accuracy
+   floor (a one-element ``add_`` in the same kind of trace).  Each of the
+   serving rollout's four step formats (zu, muq, pairmu, packed) is held
+   there also through its fused launch (``_StepKernel.into``): the next
+   state and spring std against the plain step followed by ``_integrate``
+   at the steps' tolerance, read from ``state0`` and from a row of the
+   sequence, the other rows left as they were.  Then the JAX tests' accuracy
    oracles (tests/test_fast.py:304-443) on the kernels, at those tests'
    inputs: packed and pair3 against exact, muq against pair3.  That check
    is the path of the two kernels that serve only as oracles (fk_step,
@@ -740,8 +745,7 @@ def plain_kernels():
         w.launches = 0
     try:
         for n, k in saved.items():
-            setattr(fk_step_cuda, n, lambda *a, _f=k.fmt:
-                    fk_step_cuda.fk_step_plain(_f, *a))
+            setattr(fk_step_cuda, n, fast.PlainStep(k))
         interp_cuda.fk_interp = interp_cuda.fk_interp_plain
         yield
     finally:
@@ -885,6 +889,52 @@ KERNEL_CASES = (("tradr", 0.15, 4096, ("zu", "pairmu"), (), 0.1),
                 ("tradr", 0.1, 512, ("muq",), ("fk_interp",), 0.1))
 
 
+# the serving rollout's step formats, launched fused (``_StepKernel.into``)
+FUSED_FORMATS = ("zu", "muq", "pairmu", "packed")
+
+
+def check_fused_steps(kernel, P, cst, patch, state, tv, sxy, pts):
+    """The fused launch (``_StepKernel.into``) that the serving rollout runs,
+    against its plain contract, the step's plain version followed by
+    ``physics.fast._integrate``, on the same inputs, at TOL['step'].  In a
+    4-step sequence, step 0 reads ``state0`` and step 2 reads row 1 (set to
+    the same state): rows 0 and 2 and their spring std must each match the
+    plain step and be equal, row 1 must be left as it was and row 3 and the
+    spring std's columns 1 and 3 unwritten, so that a state or spring std
+    read or written at a wrong stride or offset shows."""
+    B, N = state.shape[0], 4
+    seq = torch.full((B, N, 18), float("nan"), device=state.device)
+    spring = torch.full((B, N), float("nan"), device=state.device)
+    seq[:, 1] = state
+    tv_t = tv.expand(N, -1, -1).contiguous()
+    acc8 = fk_step_cuda.fk_step_plain(kernel.fmt, cst, patch, state, tv, sxy,
+                                      pts)
+    want = fast._integrate(state, acc8, cst[17])
+    launches = kernel.launches
+    with kernel.into(cst, tv_t, state, seq, spring, pts) as steps:
+        steps.window(patch, sxy)
+        steps.step(0)
+        steps.step(2)
+    torch.cuda.synchronize()
+    errs, good = [], kernel.launches - launches == 2
+    for k in (0, 2):
+        for got, ref in ((seq[:, k], want), (spring[:, k], acc8[:, 6])):
+            g, e = close(got, ref, TOL["step"])
+            good &= g
+            errs.append(e)
+    rows = (torch.equal(seq[:, 0], seq[:, 2])
+            and torch.equal(spring[:, 0], spring[:, 2])
+            and torch.equal(seq[:, 1], state)
+            and bool(seq[:, 3].isnan().all())
+            and bool(spring[:, 1::2].isnan().all()))
+    _say(f"fused {kernel.__name__} B={B} P={P}: next state max|k-p|="
+         f"{max(errs[0], errs[2]):.3e}, spring std {max(errs[1], errs[3]):.3e} "
+         f"(tol {TOL['step'][0]:g}+{TOL['step'][1]:g}|p|); rows read and "
+         f"written where they belong {rows}; "
+         f"{'ok' if good and rows else 'MISMATCH'}")
+    return good and rows
+
+
 def check_kernels(dev, results, only=None, cases=KERNEL_CASES):
     """Phase 2: every kernel against its plain version at B=4096 (and two
     at B=4094), on rough terrain, tilted moving bodies.  ``only``, a set
@@ -936,6 +986,8 @@ def check_kernels(dev, results, only=None, cases=KERNEL_CASES):
                 lambda a=args, f=fmt: fk_step_cuda.fk_step_plain(f, *a),
                 nbytes, B * P * STEP_FLOPS_PER_POINT[fmt], TOL["step"], flush,
                 P, results, note=floor_note if B in (32, 64) else "")
+            if fmt in FUSED_FORMATS:
+                ok &= check_fused_steps(WRAPPERS[name], P, *args)
         if not interp:
             continue
         sxy0, patch0 = fast._extract_windows(z, fr, wx, wy, d_max, res)

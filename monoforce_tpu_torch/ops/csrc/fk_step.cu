@@ -32,6 +32,17 @@
 // 32-bit words).  Points pts (7, P) = [px, py, pz, drive_mask_0..3].
 // Output (8) = [ax, ay, az, aw0, aw1, aw2, spring_std, n_contacts].
 //
+// The serving rollout's step (fk_step_into_launch) takes the same launch
+// one step further: given an output state row, warp 0's lane 0 integrates
+// its trajectory as physics/fast.py::_integrate does (semi-implicit Euler,
+// then the Rodrigues update of R), op by op with round-to-nearest
+// intrinsics and no FMA contraction, and writes the next state and the
+// spring std in place of the eight outputs.  States are read and written
+// through row strides, so step k of a rollout reads row k-1 of its
+// (B, N, 18) sequence and writes row k: one launch a step, and nothing
+// between the launches.  The branch is taken at run time, in the same
+// instantiation, so each format stays one kernel.
+//
 // What bounds it on the H100.  At the shooting batch (B=4096), operations:
 // ~150-165 float operations a point against well under a kilobyte of
 // touched window words and state a trajectory.  In practice dispatching
@@ -162,13 +173,74 @@ __device__ __forceinline__ float rot_rn(float a, float b, float c, float px,
                    __fmul_rn(c, pz));
 }
 
+// Semi-implicit Euler and R <- R (I + sin(th dt) K + (1 - cos(th dt))
+// (k k^T - I)) for one trajectory, from its state s (18) and accelerations
+// a (6), into next (18): the operations of _integrate in its order, each
+// rounded to nearest on its own as each torch operation is.
+__device__ __forceinline__ void integrate_rn(const float* __restrict__ s,
+                                              const float (&a)[6], float dt,
+                                              float* __restrict__ next) {
+  float v[3], x[3], w[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    v[i] = __fadd_rn(__ldg(s + 3 + i), __fmul_rn(a[i], dt));
+    x[i] = __fadd_rn(__ldg(s + i), __fmul_rn(v[i], dt));
+    w[i] = __fadd_rn(__ldg(s + 15 + i), __fmul_rn(a[3 + i], dt));
+  }
+  const float theta = sqrtf(__fadd_rn(
+      __fadd_rn(__fmul_rn(w[0], w[0]), __fmul_rn(w[1], w[1])),
+      __fmul_rn(w[2], w[2])));
+  const float th = fmaxf(theta, 1e-6f);
+  const float k[3] = {__fdiv_rn(w[0], th), __fdiv_rn(w[1], th),
+                      __fdiv_rn(w[2], th)};
+  const float ang = __fmul_rn(theta, dt);
+  const float sn = sinf(ang);
+  const float c1 = __fsub_rn(1.0f, cosf(ang));
+  // K = [k]_x, row-major
+  const float K[9] = {0.0f, -k[2], k[1], k[2], 0.0f, -k[0],
+                      -k[1], k[0], 0.0f};
+  float M[9];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float eye = i == j ? 1.0f : 0.0f;
+      M[3 * i + j] = __fadd_rn(
+          __fadd_rn(eye, __fmul_rn(sn, K[3 * i + j])),
+          __fmul_rn(c1, __fsub_rn(__fmul_rn(k[i], k[j]), eye)));
+    }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    next[i] = x[i];
+    next[3 + i] = v[i];
+    next[15 + i] = w[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float r0 = __ldg(s + 6 + 3 * i), r1 = __ldg(s + 7 + 3 * i);
+    const float r2 = __ldg(s + 8 + 3 * i);
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      next[6 + 3 * i + j] = __fadd_rn(
+          __fadd_rn(__fmul_rn(r0, M[j]), __fmul_rn(r1, M[3 + j])),
+          __fmul_rn(r2, M[6 + j]));
+  }
+}
+
+// state: rows of 18 floats, row b at b * state_stride.  With next_state
+// null, writes the eight outputs to out (B, 8); otherwise the next state to
+// row b of next_state (b * next_stride) and the spring std to
+// spring_out[b * spring_stride], and out is not touched.
 template <int FMT>
 __global__ void __launch_bounds__(kMaxThreads)
 fk_step_kernel(const float* __restrict__ cst,
                const uint32_t* __restrict__ patch,
-               const float* __restrict__ state, const float* __restrict__ tv,
-               const float* __restrict__ sxy, const float* __restrict__ pts,
-               int P, int n_k, float* __restrict__ out) {
+               const float* __restrict__ state, int state_stride,
+               const float* __restrict__ tv, const float* __restrict__ sxy,
+               const float* __restrict__ pts, int P, int n_k,
+               float* __restrict__ out, float* __restrict__ next_state,
+               int next_stride, float* __restrict__ spring_out,
+               int spring_stride) {
   constexpr int W = Traits<FMT>::kWords;
   constexpr bool kDivide = Traits<FMT>::kDivide;
   __shared__ __align__(16) float s_ncp[kMaxWarps];
@@ -192,7 +264,7 @@ fk_step_kernel(const float* __restrict__ cst,
     mask[k] = k < n_k ? __ldg(pts + (3 + k) * P + p) : 0.0f;
     tvk[k] = k < n_k ? __ldg(tv + (size_t)b * n_k + k) : 0.0f;
   }
-  const float* s = state + (size_t)b * 18;
+  const float* s = state + (size_t)b * state_stride;
   const float x0 = __ldg(s + 0), x1 = __ldg(s + 1), x2 = __ldg(s + 2);
   const float v0 = __ldg(s + 3), v1 = __ldg(s + 4), v2 = __ldg(s + 5);
   const float r00 = __ldg(s + 6), r01 = __ldg(s + 7), r02 = __ldg(s + 8);
@@ -380,7 +452,7 @@ fk_step_kernel(const float* __restrict__ cst,
   const float i02 = __ldg(cst + C_I02), i11 = __ldg(cst + C_I11);
   const float i12 = __ldg(cst + C_I12), i22 = __ldg(cst + C_I22);
   const float inv_m = __frcp_rn(m);
-  float* o = out + (size_t)b * 8;
+  float o[8];
   o[0] = (mg * __ldg(cst + C_GD0) + sum[3]) * inv_m;
   o[1] = (mg * __ldg(cst + C_GD1) + sum[4]) * inv_m;
   o[2] = (mg * __ldg(cst + C_GD2) + sum[5]) * inv_m;
@@ -389,48 +461,94 @@ fk_step_kernel(const float* __restrict__ cst,
   o[5] = clampf(i02 * sum[0] + i12 * sum[1] + i22 * sum[2], -om, om);
   o[6] = sqrtf(s_var + 1e-30f);
   o[7] = n_cp;
+  if (next_state == nullptr) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[(size_t)b * 8 + i] = o[i];
+    return;
+  }
+  // the state is read again (from L1) rather than held in registers
+  // through the whole step
+  const float acc6[6] = {o[0], o[1], o[2], o[3], o[4], o[5]};
+  integrate_rn(s, acc6, __ldg(cst + C_DT),
+               next_state + (size_t)b * next_stride);
+  spring_out[(size_t)b * spring_stride] = o[6];
 }
 
+struct Args {
+  const float* cst;
+  const uint32_t* patch;
+  const float* state;
+  int state_stride;
+  const float* tv;
+  const float* sxy;
+  const float* pts;
+  int B, P, n_k;
+  float* out;
+  float* next;
+  int next_stride;
+  float* spring;
+  int spring_stride;
+};
+
 template <int FMT>
-int launch(const float* cst, const uint32_t* patch, const float* state,
-           const float* tv, const float* sxy, const float* pts, int B, int P,
-           int n_k, float* out, cudaStream_t stream) {
-  const unsigned threads = (unsigned)((P + 31) / 32 * 32);
-  fk_step_kernel<FMT><<<(unsigned)B, threads, 0, stream>>>(
-      cst, patch, state, tv, sxy, pts, P, n_k, out);
+int launch(const Args& a, cudaStream_t stream) {
+  const unsigned threads = (unsigned)((a.P + 31) / 32 * 32);
+  fk_step_kernel<FMT><<<(unsigned)a.B, threads, 0, stream>>>(
+      a.cst, a.patch, a.state, a.state_stride, a.tv, a.sxy, a.pts, a.P, a.n_k,
+      a.out, a.next, a.next_stride, a.spring, a.spring_stride);
   return (int)cudaGetLastError();
+}
+
+int dispatch(int fmt, const Args& a, cudaStream_t stream) {
+  if (a.B == 0) return 0;
+  if (a.B < 0 || a.P < 1 || a.P > kMaxThreads || a.n_k < 1 || a.n_k > 4)
+    return (int)cudaErrorInvalidValue;
+  switch (fmt) {
+    case kZu:
+      return launch<kZu>(a, stream);
+    case kMuq:
+      return launch<kMuq>(a, stream);
+    case kPairMu:
+      return launch<kPairMu>(a, stream);
+    case kPacked:
+      return launch<kPacked>(a, stream);
+    case kExact:
+      return launch<kExact>(a, stream);
+    case kPair3:
+      return launch<kPair3>(a, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // fmt: 0 = zu, 1 = muq, 2 = pairmu, 3 = packed, 4 = exact, 5 = pair3.
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
+// state (B, 18) contiguous; writes out (B, 8).  Launches on `stream`;
+// returns cudaGetLastError() (0 on success).
 extern "C" int fk_step_launch(int fmt, const float* cst, const void* patch,
                               const float* state, const float* tv,
                               const float* sxy, const float* pts, int B, int P,
                               int n_k, float* out, cudaStream_t stream) {
-  if (B == 0) return 0;
-  if (B < 0 || P < 1 || P > kMaxThreads || n_k < 1 || n_k > 4)
+  const Args a{cst, static_cast<const uint32_t*>(patch), state, 18, tv, sxy,
+               pts, B, P, n_k, out, nullptr, 0, nullptr, 0};
+  return dispatch(fmt, a, stream);
+}
+
+// One serving rollout step: the state of trajectory b from
+// state[b * state_stride], the next state into next[b * next_stride] and
+// the spring std into spring[b * spring_stride] (strides in floats).
+extern "C" int fk_step_into_launch(int fmt, const float* cst,
+                                   const void* patch, const float* state,
+                                   int state_stride, const float* tv,
+                                   const float* sxy, const float* pts, int B,
+                                   int P, int n_k, float* next,
+                                   int next_stride, float* spring,
+                                   int spring_stride, cudaStream_t stream) {
+  if (next == nullptr || spring == nullptr)
     return (int)cudaErrorInvalidValue;
-  const uint32_t* w = static_cast<const uint32_t*>(patch);
-  switch (fmt) {
-    case kZu:
-      return launch<kZu>(cst, w, state, tv, sxy, pts, B, P, n_k, out, stream);
-    case kMuq:
-      return launch<kMuq>(cst, w, state, tv, sxy, pts, B, P, n_k, out, stream);
-    case kPairMu:
-      return launch<kPairMu>(cst, w, state, tv, sxy, pts, B, P, n_k, out,
-                             stream);
-    case kPacked:
-      return launch<kPacked>(cst, w, state, tv, sxy, pts, B, P, n_k, out,
-                             stream);
-    case kExact:
-      return launch<kExact>(cst, w, state, tv, sxy, pts, B, P, n_k, out,
-                            stream);
-    case kPair3:
-      return launch<kPair3>(cst, w, state, tv, sxy, pts, B, P, n_k, out,
-                            stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const Args a{cst, static_cast<const uint32_t*>(patch), state, state_stride,
+               tv, sxy, pts, B, P, n_k, nullptr, next, next_stride, spring,
+               spring_stride};
+  return dispatch(fmt, a, stream);
 }

@@ -37,6 +37,13 @@ added 1e-15 N to the spring sum, which the port, having none, leaves out.
 
 Each wrapper takes the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel or raises.  ``<wrapper>.launches`` counts launches.
+
+On the card the serving rollout steps through :meth:`_StepKernel.into`:
+one launch a step that also integrates the state and writes it into the
+rollout's (B, N, 18) sequence, its buffers checked once a rollout and its
+windows once a refresh.  Its plain version, ``fk_step_plain`` followed by
+``physics.fast._integrate``, is ``physics.fast.PlainStep``, the layer that
+owns the integration.
 """
 
 from __future__ import annotations
@@ -69,6 +76,11 @@ _C_I00, _C_I01, _C_I02, _C_I11, _C_I12, _C_I22, _C_DT = range(11, 18)
 # fk_step_launch(fmt, cst, patch, state, tv, sxy, pts, B, P, n_k, out, stream)
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6
              + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+# fk_step_into_launch(fmt, cst, patch, state, state_stride, tv, sxy, pts, B,
+#                     P, n_k, next, next_stride, spring, spring_stride, stream)
+_INTO_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                  + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                  + [ctypes.c_void_p, ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
 def pack_consts(robot) -> torch.Tensor:
@@ -231,6 +243,17 @@ def fk_step_plain(fmt, cst, patch, state, tv, sxy, pts):
     return torch.cat([ax, ay, az, aw0, aw1, aw2, s_std, n_cp], dim=1)
 
 
+def _check_tensor(name, t, device, dtype, shape):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, not {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 def _check(fmt, cst, patch, state, tv, sxy, pts):
     B = state.shape[0]
     P = pts.shape[1]
@@ -242,18 +265,98 @@ def _check(fmt, cst, patch, state, tv, sxy, pts):
               "sxy": (sxy, torch.float32, (B, 2)),
               "pts": (pts, torch.float32, (7, P))}
     for name, (t, dtype, shape) in expect.items():
-        if t.device != state.device:
-            raise ValueError(f"{name} is on {t.device}, state on {state.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        _check_tensor(name, t, state.device, dtype, shape)
     if not 1 <= tv.shape[1] <= 4:
         raise ValueError(f"1 to 4 driving parts, got {tv.shape[1]}")
     if not 1 <= P <= 256:
         raise ValueError(f"1 to 256 contact points, got {P}")
+
+
+class _Steps:
+    """The fused steps of one rollout on the card, from
+    :meth:`_StepKernel.into`: ``window(patch, sxy)`` at each window refresh,
+    then ``step(k)`` launches the kernel once, writing the state after step
+    k to ``seq[:, k]`` and its spring std to ``spring[:, k]``, from
+    ``state0`` at k = 0 and from ``seq[:, k - 1]`` after.  The buffers are
+    checked here, once; entering the context loads the library and enters
+    the card's device, once around the steps.  (The same steps through the
+    plain versions are ``physics.fast.PlainStep``.)"""
+
+    def __init__(self, kernel, cst, tv_t, state0, seq, spring, pts):
+        B, N = seq.shape[0], seq.shape[1]
+        dev = seq.device
+        K = tv_t.shape[2] if tv_t.ndim == 3 else 0
+        for name, t, dtype, shape in (
+                ("cst", cst, torch.float32, (18,)),
+                ("tv_t", tv_t, torch.float32, (N, B, K)),
+                ("state0", state0, torch.float32, (B, 18)),
+                ("seq", seq, torch.float32, (B, N, 18)),
+                ("spring", spring, torch.float32, (B, N)),
+                ("pts", pts, torch.float32, (7, pts.shape[1]))):
+            _check_tensor(name, t, dev, dtype, shape)
+        if not 1 <= K <= 4:
+            raise ValueError(f"1 to 4 driving parts, got {K}")
+        if not 1 <= pts.shape[1] <= 256:
+            raise ValueError(f"1 to 256 contact points, got {pts.shape[1]}")
+        self.kernel, self.fmt = kernel, kernel.fmt
+        self.seq = seq
+        self.B, self.N, self.K, self.P = B, N, K, pts.shape[1]
+        # the buffers, held as long as the steps that read them, and their
+        # addresses, once: a step adds its offsets
+        self._held = {"cst": cst, "tv_t": tv_t, "state0": state0, "seq": seq,
+                      "spring": spring, "pts": pts}
+        self._ptr = {n: t.data_ptr() for n, t in self._held.items()}
+        self._device = None
+
+    def __enter__(self):
+        if self.seq.device.type != "cuda":
+            raise NotImplementedError(f"{self.kernel.__name__}'s fused steps "
+                                      f"run on cuda, not {self.seq.device.type}")
+        self._launch = _build.load("fk_step", "fk_step_into_launch",
+                                   _INTO_ARGTYPES)
+        self._device = torch.cuda.device(self.seq.device)
+        self._device.__enter__()
+        self._stream = torch.cuda.current_stream().cuda_stream
+        return self
+
+    def __exit__(self, *exc):
+        if self._device is not None:
+            self._device.__exit__(*exc)
+            self._device = None
+        return False
+
+    def window(self, patch, sxy):
+        """The windows of the steps that follow: patch (B, FORMATS[fmt])
+        words, sxy (B, 2) corners."""
+        words = torch.float32 if self.fmt == "exact" else torch.int32
+        dev = self.seq.device
+        _check_tensor("patch", patch, dev, words, (self.B, FORMATS[self.fmt]))
+        _check_tensor("sxy", sxy, dev, torch.float32, (self.B, 2))
+        self._held["patch"], self._held["sxy"] = patch, sxy
+        self._ptr["patch"] = patch.data_ptr()
+        self._ptr["sxy"] = sxy.data_ptr()
+
+    def step(self, k):
+        """Step k (0 <= k < N) on the current windows."""
+        ptr, N = self._ptr, self.N
+        if not 0 <= k < N:
+            raise IndexError(f"step {k} of a rollout of {N}")
+        # byte offsets of float32 rows: seq[:, k] at 72 k, spring[:, k] at
+        # 4 k, tv_t[k] at 4 k B K
+        if k == 0:
+            state, stride = ptr["state0"], 18
+        else:
+            state, stride = ptr["seq"] + (k - 1) * 72, N * 18
+        rc = self._launch(_FMT_CODE[self.fmt], ptr["cst"], ptr["patch"],
+                          state, stride,
+                          ptr["tv_t"] + k * self.B * self.K * 4, ptr["sxy"],
+                          ptr["pts"], self.B, self.P, self.K,
+                          ptr["seq"] + k * 72, N * 18,
+                          ptr["spring"] + k * 4, N, self._stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.kernel.__name__} kernel launch "
+                               f"failed: CUDA error {rc}")
+        self.kernel.launches += 1
 
 
 class _StepKernel:
@@ -279,6 +382,13 @@ class _StepKernel:
             raise NotImplementedError(f"{self.__name__} runs on cuda or cpu, "
                                       f"not {state.device.type}")
         return self.launch(cst, patch, state, tv, sxy, pts)
+
+    def into(self, cst, tv_t, state0, seq, spring, pts):
+        """The fused steps of one rollout on the card (:class:`_Steps`):
+        tv_t (N, B, K) f32 track velocities, state0 (B, 18) f32 the state
+        before step 0, seq (B, N, 18) and spring (B, N) f32 the outputs, all
+        contiguous; cst and pts as for a call."""
+        return _Steps(self, cst, tv_t, state0, seq, spring, pts)
 
     def launch(self, cst, patch, state, tv, sxy, pts):
         launch = _build.load("fk_step", "fk_step_launch", _ARGTYPES)

@@ -23,8 +23,11 @@ Two rollouts:
   refreshed every 8 steps, flipper articulation, euler or rk4.
 - :func:`planner_rollout`, the serving path: one launch of a step kernel
   (``ops/fk_step_cuda.py``) per step on bf16 windows refreshed every 32
-  steps, integration and the Rodrigues update in plain PyTorch on the
-  packed (B, 18) state.  Its ``fallback`` mode is :func:`fast_rollout`.
+  steps; the launch also integrates the packed (B, 18) state
+  (:func:`_integrate`, the Rodrigues update included) and writes it into the
+  rollout's (B, N, 18) sequence; on the CPU the steps are the plain
+  versions, :class:`PlainStep`.  Its ``fallback`` mode is
+  :func:`fast_rollout`.
 
 Both run ``fk_interp`` once in the settle step.  The TPU layout's ghost
 points (contact points padded to a multiple of 128 lanes, masked out of
@@ -37,6 +40,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from monoforce_tpu_torch.ops.fk_step_cuda import fk_step_plain
 from monoforce_tpu_torch.physics.controls import vw_to_track_vels
 from monoforce_tpu_torch.physics.engine import (RigidState, _default_state0,
                                                 on_device)
@@ -543,6 +547,49 @@ def _integrate(state18, acc8, dt):
     return torch.cat([xn, vn, Rn.reshape(-1, 9), wn], dim=1)
 
 
+class PlainStep:
+    """A step kernel's fused rollout steps (``_StepKernel.into``) through
+    the plain versions, on any device: step k is ``fk_step_plain`` on the
+    state before it followed by :func:`_integrate`, written into the
+    rollout's sequence as the kernel writes it.  The serving rollout's steps
+    on the CPU; on the card, the version the fused kernel is held against."""
+
+    def __init__(self, kernel):
+        self.fmt = kernel.fmt
+        self.__name__ = kernel.__name__
+
+    def into(self, cst, tv_t, state0, seq, spring, pts):
+        return _PlainSteps(self.fmt, cst, tv_t, state0, seq, spring, pts)
+
+
+class _PlainSteps:
+    """:class:`PlainStep`'s steps of one rollout: ``window(patch, sxy)`` at
+    each window refresh, then ``step(k)``."""
+
+    def __init__(self, fmt, cst, tv_t, state0, seq, spring, pts):
+        self.fmt, self.cst, self.tv_t, self.pts = fmt, cst, tv_t, pts
+        self.state0, self.seq, self.spring = state0, seq, spring
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def window(self, patch, sxy):
+        self.patch, self.sxy = patch, sxy
+
+    def step(self, k):
+        if not 0 <= k < self.seq.shape[1]:
+            raise IndexError(f"step {k} of a rollout of {self.seq.shape[1]}")
+        state = self.state0 if k == 0 else self.seq[:, k - 1]
+        acc8 = fk_step_plain(self.fmt, self.cst, self.patch, state,
+                             self.tv_t[k], self.sxy, self.pts)
+        # cst[17] is the step dt (pack_consts)
+        self.seq[:, k] = _integrate(state, acc8, self.cst[17])
+        self.spring[:, k] = acc8[:, 6]
+
+
 def planner_rollout(robot, z_grid, controls,
                     state0: Optional[RigidState] = None, friction=None,
                     track_vels=None, with_stats: bool = True):
@@ -551,7 +598,9 @@ def planner_rollout(robot, z_grid, controls,
     The mode is :func:`planner_kernel_mode`'s: ``pair_zu``, ``pair3_zu``
     (``fk_step_zu``), ``pair3_muq`` (``fk_step_muq``), ``pair``
     (``fk_step_pairmu``) and ``packed`` (``fk_step_packed``) launch one step
-    kernel per step; ``fallback`` (rk4 or P > 256) is :func:`fast_rollout`.
+    kernel per step, which also integrates the state into the rollout's
+    sequence (``_StepKernel.into``); ``fallback`` (rk4 or P > 256) is
+    :func:`fast_rollout`.
 
     Args:
       robot: RobotModel (no flipper articulation).
@@ -569,7 +618,8 @@ def planner_rollout(robot, z_grid, controls,
     Recorded as span ``rollout`` (``utils.profiling``) over
     ``rollout.settle``, a ``rollout.extract`` and a ``rollout.steps`` per
     block of steps between window refreshes, and ``rollout.stats``; its
-    counter ``rollout.steps`` (N).
+    counters ``rollout.steps`` (N) and ``rollout.fused_steps`` (the steps
+    issued as one fused launch each: N, or none on ``fallback``).
     """
     with span("rollout"):
         return _planner_rollout(robot, z_grid, controls, state0, friction,
@@ -650,26 +700,32 @@ def _planner_rollout(robot, z_grid, controls, state0, friction, track_vels,
     dt = robot.dt
     tv_t = track_vels.to(dev, torch.float32).transpose(0, 1).contiguous()
     n_total = tv_t.shape[0]
-    states, accs = [], []
-    for start in range(0, n_total, _REFRESH_PRED):
-        n_blk = min(_REFRESH_PRED, n_total - start)
-        # windows over the footprint now and at the velocity-predicted end
-        # of the block (the remainder block predicts over its own length)
-        t_blk = n_blk * dt
-        count("rollout.steps", n_blk)
-        with span("rollout.extract"):
-            wx, wy = _world_xy(c, state18)
-            sxy, patch = extract(wx, wy, state18[:, 3:4] * t_blk,
-                                 state18[:, 4:5] * t_blk)
-        with span("rollout.steps"):
-            for k in range(start, start + n_blk):
-                acc8 = step(cst, patch, state18, tv_t[k], sxy, pts)
-                state18 = _integrate(state18, acc8, dt)
-                states.append(state18)
-                accs.append(acc8)
+    # step k writes the state after it to seq[:, k] and its spring std to
+    # spring[:, k], reading the state before it from seq[:, k - 1]
+    seq = torch.empty((B, n_total, 18), dtype=torch.float32, device=dev)
+    spring = torch.empty((B, n_total), dtype=torch.float32, device=dev)
+    if dev.type == "cpu":
+        step = PlainStep(step)
+    with step.into(cst, tv_t, state18, seq, spring, pts) as steps:
+        for start in range(0, n_total, _REFRESH_PRED):
+            n_blk = min(_REFRESH_PRED, n_total - start)
+            # windows over the footprint now and at the velocity-predicted
+            # end of the block (the remainder block predicts over its own
+            # length)
+            t_blk = n_blk * dt
+            count("rollout.steps", n_blk)
+            count("rollout.fused_steps", n_blk)
+            with span("rollout.extract"):
+                state = state18 if start == 0 else seq[:, start - 1]
+                wx, wy = _world_xy(c, state)
+                sxy, patch = extract(wx, wy, state[:, 3:4] * t_blk,
+                                     state[:, 4:5] * t_blk)
+                steps.window(patch, sxy)
+            with span("rollout.steps"):
+                for k in range(start, start + n_blk):
+                    steps.step(k)
 
     with span("rollout.stats"):
-        seq = torch.stack(states, dim=1)                       # (B, N, 18)
         xs = seq[..., 0:3]
         Rs = seq[..., 6:15].reshape(seq.shape[:2] + (3, 3))
         delta_h = robot.mass * robot.gravity / (robot.stiffness + 1e-6)
@@ -681,6 +737,5 @@ def _planner_rollout(robot, z_grid, controls, state0, friction, track_vels,
             roll = torch.atan2(Rs[..., 2, 1], Rs[..., 2, 2])
             pitch = torch.atan2(-Rs[..., 2, 0], torch.sqrt(
                 Rs[..., 2, 1] ** 2 + Rs[..., 2, 2] ** 2))
-            spring_std = torch.stack([a[:, 6] for a in accs], dim=1)
-            stats = StepStats(spring_std, roll.abs(), pitch.abs())
+            stats = StepStats(spring, roll.abs(), pitch.abs())
         return out, stats

@@ -177,6 +177,127 @@ def test_exact_step_gradient_matches_plain(dev):
         torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-4)
 
 
+
+# the serving formats of the fused steps, each at a robot cloud's P
+FUSED_P = {"zu": 62, "muq": 148, "pairmu": 62, "packed": 202}
+
+
+@pytest.mark.parametrize("B", [64, 4096])
+@pytest.mark.parametrize("fmt", list(FUSED_P))
+def test_fused_step_matches_step_then_integrate(dev, fmt, B):
+    """One fused launch (``_StepKernel.into``) against the same format's
+    kernel followed by the plain ``_integrate``: the next state within 1e-6
+    (the rotation's sums and sin/cos in another order; no FMA), the spring
+    std within the steps' tolerance; one launch, the sequence's other rows
+    untouched."""
+    cst, patch, state, tv, sxy, pts = _geometry_args(fmt, FUSED_P[fmt], B, dev)
+    kernel = KERNEL[fmt]
+    acc8 = kernel(cst, patch, state, tv, sxy, pts)
+    want = fast._integrate(state, acc8, cst[17])
+    N = 3
+    seq = torch.full((B, N, 18), float("nan"), device=dev)
+    spring = torch.full((B, N), float("nan"), device=dev)
+    # step 1 of a rollout: the state before it read from row 0
+    seq[:, 0] = state
+    tv_t = tv.expand(N, -1, -1).contiguous()
+    kernel.launches = 0
+    with kernel.into(cst, tv_t, torch.zeros_like(state), seq, spring,
+                     pts) as steps:
+        steps.window(patch, sxy)
+        steps.step(1)
+    torch.cuda.synchronize()
+    assert kernel.launches == 1
+    torch.testing.assert_close(seq[:, 1], want, atol=1e-6, rtol=0)
+    torch.testing.assert_close(spring[:, 1], acc8[:, 6], atol=1e-3,
+                               rtol=1e-4)
+    assert torch.equal(seq[:, 0], state)
+    assert bool(seq[:, 2].isnan().all()) and bool(spring[:, 0::2].isnan().all())
+
+
+def _hill(dev, B, N, seed=0):
+    """A smooth hill with smooth friction (the shooting cell's kind of
+    terrain: rollouts on it do not part by chaos) and seeded commands."""
+    cfg = PhysicsConfig.for_planner("tradr")
+    gx, gy = cfg.grid_coords()
+    z = 0.4 * np.exp(-((gx - 2.0) ** 2 / 4.0 + gy ** 2 / 8.0))
+    fr = 0.7 + 0.25 * np.sin(gx / 3.0) * np.cos(gy / 3.0)
+    ctr = np.random.default_rng(seed).uniform(-1.0, 1.0, (B, 1, 2))
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    return cfg, to(z), to(fr), to(np.repeat(ctr, N, axis=1))
+
+
+def test_fused_pairmu_rollout_matches_plain(dev, monkeypatch):
+    """A 100-step pairmu rollout (tradr's planner preset, B=512, friction)
+    through the fused launches within 2e-4 m of the same rollout through
+    the plain versions on the card; fk_step_pairmu launched N times."""
+    cfg, z, fr, ctr = _hill(dev, 512, 100)
+    robot = RobotModel.from_config(cfg, device=dev)
+    assert fast.planner_kernel_mode(robot, 512, False) == "pair"
+    fk_step_cuda.fk_step_pairmu.launches = 0
+    got, got_stats = fast.planner_rollout(robot, z, ctr, friction=fr)
+    torch.cuda.synchronize()
+    assert fk_step_cuda.fk_step_pairmu.launches == 100
+    monkeypatch.setattr(fk_step_cuda, "fk_step_pairmu",
+                        fast.PlainStep(fk_step_cuda.fk_step_pairmu))
+    monkeypatch.setattr(interp_cuda, "fk_interp", interp_cuda.fk_interp_plain)
+    want, want_stats = fast.planner_rollout(robot, z, ctr, friction=fr)
+    assert float((got.x - want.x).abs().max()) <= 2e-4
+    torch.testing.assert_close(got_stats.spring_std, want_stats.spring_std,
+                               atol=1e-2, rtol=1e-3)
+
+
+def _kernel_name(op):
+    """A device operation's kernel without return type, namespace or
+    arguments: ``fk_step_kernel<2>``."""
+    name = op.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[len("void "):]
+    return name.split("(", 1)[0]
+
+
+def _kernels_under(events, span):
+    """Names of the kernels that run inside the card's copy of range
+    ``span`` and of no range inside it.  A kernel launched through ctypes
+    has no runtime record to link to (its ``linked_correlation_id`` is 0),
+    so kernels are placed by time on the card's timeline, where the ranges
+    cover the kernels launched inside them and one stream runs them in
+    order."""
+    cuda = torch.autograd.DeviceType.CUDA
+    ranges, kernels = [], []
+    for e in events:
+        if e.device_type() != cuda:
+            continue
+        if e.is_user_annotation():
+            if e.name().startswith("mf."):
+                ranges.append((e.start_ns(), e.end_ns(), e.name()))
+        elif not e.name().startswith(("Memcpy", "Memset")):
+            kernels.append((e.start_ns(), e.name()))
+    out = []
+    for t, name in kernels:
+        held = [r for r in ranges if r[0] <= t <= r[1]]
+        if held and max(held, key=lambda r: (r[0], -r[1]))[2] == span:
+            out.append(name)
+    return out
+
+
+def test_fused_rollout_is_one_kernel_a_step(dev, tmp_path):
+    """Under the profiler the serving rollout's steps are N launches of one
+    kernel, each named exactly ``fk_step_kernel<2>`` (pairmu), and nothing
+    else: the integration runs inside them."""
+    from monoforce_tpu_torch.utils.profiling import trace
+
+    N = 40
+    cfg, z, fr, ctr = _hill(dev, 64, N, seed=1)
+    robot = RobotModel.from_config(cfg, device=dev)
+    fast.planner_rollout(robot, z, ctr, friction=fr)
+    torch.cuda.synchronize()
+    with trace(str(tmp_path)) as prof:
+        fast.planner_rollout(robot, z, ctr, friction=fr)
+    names = _kernels_under(prof.profiler.kineto_results.events(),
+                           "mf.rollout.steps")
+    assert len(names) == N, names[:5]
+    assert {_kernel_name(n) for n in names} == {"fk_step_kernel<2>"}
+
 def _interp_args(P, B, dev, seed=0, kind="mixed"):
     """fk_interp's inputs at any P and B: rough [z | mu] windows at random
     corners of a 12.8 m grid (d_max 6.4, res 0.1) and queries given in

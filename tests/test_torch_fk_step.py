@@ -314,3 +314,106 @@ def test_step_wrappers_check_inputs():
     with pytest.raises(TypeError):
         # the exact step takes float32 windows, not int32 words
         tops.fk_step(args[0], w["tw"].repeat(1, 2), *args[2:])
+
+
+# the serving formats of the fused steps: voxel, friction's upper end, robot
+FUSED_CASES = {"zu": (0.15, 1.0, "tradr"), "muq": (0.1, 3.9, "tradr"),
+               "pairmu": (0.15, 1.0, "tradr"), "packed": (0.1, 2.0, "husky")}
+
+
+@pytest.mark.parametrize("fmt", list(FUSED_CASES))
+def test_fused_steps_are_the_step_then_integrate(fmt):
+    """The fused steps' plain version (``physics.fast.PlainStep``), the
+    serving rollout's steps on the CPU: step k is ``fk_step_plain`` on the
+    state before it followed by ``physics.fast._integrate``, bit for bit,
+    reading that state from the sequence it writes, over two window
+    refreshes; it launches nothing."""
+    voxel, mu_max, robot = FUSED_CASES[fmt]
+    _, tr, z, fr, st, _ = _case(voxel, mu_max, seed=5, robot=robot)
+    N, refresh = 7, 3
+    K = tr.n_tracks
+    rng = np.random.default_rng(6)
+    tv_t = torch.from_numpy(rng.uniform(-1.0, 1.0, (N, B, K)).astype(
+        np.float32))
+    zt, mu = torch.from_numpy(z), torch.from_numpy(fr)
+    c = tfast._make_consts(tr)
+
+    def windows(state):
+        wx, wy = tfast._world_xy(c, state)
+        args = (wx, wy, tr.d_max, tr.grid_res)
+        if fmt == "zu":
+            return tfast._extract_windows_zpair(zt, *args)
+        if fmt == "muq":
+            return tfast._extract_windows_zmuq(
+                zt, tfast.quantize_mu_grid(mu), *args)
+        return tfast._extract_windows_packed1(zt, mu, *args)
+
+    cst, pts = tops.pack_consts(tr), tops.pack_points(tr)
+    state0 = torch.from_numpy(st)
+    seq = torch.full((B, N, 18), float("nan"))
+    spring = torch.full((B, N), float("nan"))
+    kernel = PORT_STEP[fmt]
+    kernel.launches = 0
+    with tfast.PlainStep(kernel).into(cst, tv_t, state0, seq, spring,
+                                      pts) as steps:
+        for k in range(N):
+            if k % refresh == 0:
+                sxy, patch = windows(state0 if k == 0 else seq[:, k - 1])
+                steps.window(patch, sxy)
+            steps.step(k)
+    assert kernel.launches == 0
+
+    state = state0
+    for k in range(N):
+        if k % refresh == 0:
+            sxy, patch = windows(state)
+        acc8 = tops.fk_step_plain(fmt, cst, patch, state, tv_t[k], sxy, pts)
+        state = tfast._integrate(state, acc8, tr.dt)
+        assert torch.equal(seq[:, k], state), k
+        assert torch.equal(spring[:, k], acc8[:, 6]), k
+
+
+def test_fused_steps_check_buffers():
+    """``into`` checks the rollout's buffers once and ``window`` each
+    refresh's windows: shapes, dtypes, contiguity; ``step`` its index, on
+    the card as in the plain version; the fused launch runs on the card
+    only."""
+    w = _windows("pair", predicted=False)
+    tr = w["tr"]
+    cst, pts = tops.pack_consts(tr), tops.pack_points(tr)
+    state0 = torch.from_numpy(w["st"])
+    N, K = 4, tr.n_tracks
+    tv_t = torch.zeros((N, B, K))
+    seq, spring = torch.empty((B, N, 18)), torch.empty((B, N))
+    step = tops.fk_step_pairmu
+    launches = step.launches
+    with pytest.raises(ValueError):
+        step.into(cst, tv_t, state0, torch.empty((B, N + 1, 18)), spring, pts)
+    with pytest.raises(ValueError):
+        step.into(cst, tv_t[:, :, :0], state0, seq, spring, pts)
+    with pytest.raises(ValueError):
+        step.into(cst, tv_t.transpose(0, 1).contiguous().transpose(0, 1),
+                  state0, seq, spring, pts)
+    with pytest.raises(TypeError):
+        step.into(cst, tv_t, state0, seq, spring.double(), pts)
+    steps = step.into(cst, tv_t, state0, seq, spring, pts)
+    with pytest.raises(TypeError):
+        steps.window(w["tw"].float(), w["tsxy"])
+    with pytest.raises(ValueError):
+        steps.window(w["tw"][:, :128], w["tsxy"])
+    steps.window(w["tw"], w["tsxy"])
+    for k in (-1, N):
+        with pytest.raises(IndexError):
+            steps.step(k)
+    with pytest.raises(NotImplementedError):
+        with steps:
+            pass
+    with tfast.PlainStep(step).into(cst, tv_t, state0, seq, spring,
+                                    pts) as steps:
+        steps.window(w["tw"], w["tsxy"])
+        steps.step(0)
+        for k in (-1, N):
+            with pytest.raises(IndexError):
+                steps.step(k)
+    assert torch.isfinite(seq[:, 0]).all()
+    assert step.launches == launches

@@ -23,10 +23,15 @@ from monoforce_tpu.physics.fast import planner_rollout as jax_rollout
 from monoforce_tpu.planner.shooting import Planner as JaxPlanner
 from monoforce_tpu_torch.config import PhysicsConfig
 from monoforce_tpu_torch.convert import ROBOT_LEAVES, robot_model_from_arrays
-from monoforce_tpu_torch.physics.controls import time_stamps
+from monoforce_tpu_torch.ops.fk_step_cuda import (fk_step_plain, pack_consts,
+                                                 pack_points)
+from monoforce_tpu_torch.ops.interp_cuda import fk_interp
+from monoforce_tpu_torch.physics import fast
+from monoforce_tpu_torch.physics.controls import time_stamps, vw_to_track_vels
 from monoforce_tpu_torch.physics.engine import RigidState, RobotModel
 from monoforce_tpu_torch.physics.fast import planner_kernel_mode, planner_rollout
 from monoforce_tpu_torch.planner.shooting import Planner
+from monoforce_tpu_torch.utils.profiling import recording, span
 
 B, N = 32, 40
 
@@ -214,3 +219,112 @@ def test_sample_controls_shape_and_ranges():
     assert (ctr[:8, :, 0] >= cfg.vel_max / 2).all()
     assert (ctr[8:, :, 0] <= -cfg.vel_max / 2).all()
     assert (ctr[..., 1].abs() <= cfg.omega_max).all()
+
+
+def _rollout_before(robot, z, ctr, friction, state0):
+    """The serving loop as it ran before its steps were fused: per step one
+    plain step call and a plain ``_integrate`` on the packed state, the
+    states and spring std stacked at the end (positions, R, spring std)."""
+    mode = planner_kernel_mode(robot, ctr.shape[0], friction is None)
+    fmt = {"pair_zu": "zu", "pair3_zu": "zu", "pair3_muq": "muq",
+           "pair": "pairmu", "packed": "packed"}[mode]
+    c = fast._make_consts(robot)
+    cst, pts = pack_consts(robot), pack_points(robot)
+    d_max, res = robot.d_max, robot.grid_res
+    mu = torch.ones_like(z) if friction is None else friction
+    state = torch.stack(fast._unpack_state(state0), dim=1)
+    wx0, wy0 = fast._world_xy(c, state)
+    sxy0, patch0 = fast._extract_windows(z, mu, wx0, wy0, d_max, res)
+    z0 = fk_interp(patch0, wx0.contiguous(), wy0.contiguous(), sxy0,
+                   c.cst)[:, :wx0.shape[1]]
+    state = state.clone()
+    state[:, 2] = z0.sum(dim=1) / wx0.shape[1]
+
+    def extract(wx, wy, dqx, dqy):
+        if fmt == "zu":
+            return fast._extract_windows_zpair(z, wx, wy, d_max, res, dqx,
+                                               dqy)
+        if fmt == "muq":
+            return fast._extract_windows_zmuq(z, fast.quantize_mu_grid(mu),
+                                              wx, wy, d_max, res, dqx, dqy)
+        return fast._extract_windows_packed1(z, mu, wx, wy, d_max, res, dqx,
+                                             dqy)
+
+    tv_t = vw_to_track_vels(ctr[..., 0], ctr[..., 1], robot.robot_size,
+                            robot.n_tracks).transpose(0, 1).contiguous()
+    n_total = tv_t.shape[0]
+    states, accs = [], []
+    for start in range(0, n_total, 32):
+        t_blk = min(32, n_total - start) * robot.dt
+        wx, wy = fast._world_xy(c, state)
+        sxy, patch = extract(wx, wy, state[:, 3:4] * t_blk,
+                             state[:, 4:5] * t_blk)
+        for k in range(start, min(start + 32, n_total)):
+            acc8 = fk_step_plain(fmt, cst, patch, state, tv_t[k], sxy, pts)
+            state = fast._integrate(state, acc8, robot.dt)
+            states.append(state)
+            accs.append(acc8)
+    seq = torch.stack(states, dim=1)
+    Rs = seq[..., 6:15].reshape(seq.shape[:2] + (3, 3))
+    delta_h = robot.mass * robot.gravity / (robot.stiffness + 1e-6)
+    xs = seq[..., 0:3] + Rs[..., :, 2] * delta_h
+    return xs, Rs, torch.stack([a[:, 6] for a in accs], dim=1)
+
+
+@pytest.mark.parametrize("n_steps", [1, 32, 33, 45])
+@pytest.mark.parametrize("mode,kw,b,friction", [
+    ("pair_zu", {"mesh_voxel_size": 0.15}, 16, False),
+    ("pair", {"mesh_voxel_size": 0.15}, 16, True),
+    ("pair3_muq", {"mesh_voxel_size": 0.1}, 16, True),
+    ("packed", {"mesh_voxel_size": 0.1}, 10, True)])
+def test_rollout_sequence_buffer_matches_the_step_loop(mode, kw, b, friction,
+                                                       n_steps):
+    """The fused steps writing into the (B, N, 18) sequence give the states
+    and stats of the per-step loop they replaced, bit for bit: one step, a
+    whole block, a block and one step, a block and a remainder of 13.  The
+    bodies start at up to 6 m/s, so that a block's windows cut where the
+    state read back from the sequence at its boundary puts them cover the
+    footprint, and windows cut at a stale state do not."""
+    cfg = PhysicsConfig(robot="tradr", **kw)
+    robot = RobotModel.from_config(cfg, device="cpu")
+    z, fr, _ = _terrain(cfg, seed=13)
+    rng = np.random.default_rng(14)
+    ctr = rng.uniform(-1.0, 1.0, (b, n_steps, 2)).astype(np.float32)
+    xd = np.zeros((b, 3), np.float32)
+    xd[:, :2] = rng.uniform(-6.0, 6.0, (b, 2))
+    state0 = RigidState(torch.zeros((b, 3)), torch.from_numpy(xd),
+                        torch.eye(3).expand(b, 3, 3).contiguous(),
+                        torch.zeros((b, 3)))
+    z, ctr = torch.from_numpy(z), torch.from_numpy(ctr)
+    fr = torch.from_numpy(fr) if friction else None
+    assert planner_kernel_mode(robot, b, fr is None) == mode
+    states, stats = planner_rollout(robot, z, ctr, state0=state0, friction=fr)
+    xs, Rs, spring = _rollout_before(robot, z, ctr, fr, state0)
+    assert torch.equal(states.x, xs)
+    assert torch.equal(states.R, Rs)
+    assert torch.equal(stats.spring_std, spring)
+    assert torch.equal(stats.abs_roll,
+                       torch.atan2(Rs[..., 2, 1], Rs[..., 2, 2]).abs())
+
+
+@pytest.mark.parametrize(
+    "mode,robot,kw,b,friction", ROLLOUT_CASES,
+    ids=[f"{m}-{r}-{b}-{'mu' if f else 'zu'}"
+         for m, r, _, b, f in ROLLOUT_CASES])
+def test_rollout_counts_fused_steps(mode, robot, kw, b, friction):
+    """``rollout.fused_steps`` counts every step of a serving mode, as
+    ``rollout.steps`` does, and none on ``fallback`` (fast_rollout)."""
+    cfg = PhysicsConfig(robot=robot, **kw)
+    tr = RobotModel.from_config(cfg, device="cpu")
+    z, fr, ctr = _terrain(cfg, seed=7)
+    n_steps = 9
+    ctr = torch.from_numpy(np.concatenate([ctr, ctr])[:b, :n_steps])
+    with recording() as rec:
+        with span("request"):
+            planner_rollout(tr, torch.from_numpy(z), ctr,
+                            friction=torch.from_numpy(fr) if friction
+                            else None)
+        (counters,) = rec.take()["counters"].values()
+    assert counters["rollout.steps"] == n_steps
+    want = 0 if mode == "fallback" else n_steps
+    assert counters.get("rollout.fused_steps", 0) == want

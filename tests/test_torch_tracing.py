@@ -121,8 +121,10 @@ def test_tick_span_tree_and_counters(tick):
         assert s.end_ns >= s.start_ns
     counters = taken["counters"]
     assert set(counters) == {request}
-    # the kernels' plain versions launch nothing on the CPU
-    assert counters[request] == {"rollout.steps": N_STEPS}
+    # the kernels' plain versions launch nothing on the CPU; every step of
+    # the serving mode is a fused step
+    assert counters[request] == {"rollout.steps": N_STEPS,
+                                 "rollout.fused_steps": N_STEPS}
     ms = host_ms(taken)
     assert ms["tick"] >= ms["encode"] + ms["plan"]
     assert ms["plan"] >= ms["rollout"] + ms["plan.cost"]
